@@ -1,0 +1,49 @@
+"""Compute ops used by the model, following ``repro.kernels.ops``.
+
+``flash_attention`` with Sq == Sk and q_offset == 0 always goes to the
+kernel wrapper (which takes the plain version only for CPU tensors).  Other
+shapes run the plain version on the CPU and are not yet ported on CUDA.
+``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    if q.shape[1] == k.shape[1] and q_offset == 0:
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  chunk=chunk, softcap=softcap)
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            "flash_attention with Sq != Sk or q_offset != 0 is not ported to CUDA")
+    return ref.attention_ref(q, k, v, causal=causal, window=window, chunk=chunk,
+                             softcap=softcap, q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,         # (B, 1, H, D)
+    k_cache: torch.Tensor,   # (B, L, KV, D)
+    v_cache: torch.Tensor,
+    slot_pos: torch.Tensor,  # (B, L)
+    pos: torch.Tensor,       # (B,)
+    *,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
+                                    window=window, chunk=chunk, softcap=softcap)

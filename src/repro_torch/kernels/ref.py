@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the attention oracles in ``repro.kernels.ref``.
+
+They are the CPU path of every kernel wrapper and the yardstick the CUDA
+kernels are held against on the card.  They favour clarity over memory: the
+full score matrix is materialized.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int, chunk: int) -> torch.Tensor:
+    """(Sq, Sk) boolean mask. True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    if chunk > 0:
+        m &= torch.div(q_pos[:, None], chunk, rounding_mode="floor") == \
+            torch.div(k_pos[None, :], chunk, rounding_mode="floor")
+    return m
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(D)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    m = _mask(q_pos, k_pos, causal=causal, window=window, chunk=chunk)
+    s = torch.where(m[None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    # rows with no valid key -> zero out
+    p = torch.where(m.any(-1)[None, None, None, :, None], p, torch.zeros_like(p))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,         # (B, 1, H, D)
+    k_cache: torch.Tensor,   # (B, L, KV, D)
+    v_cache: torch.Tensor,   # (B, L, KV, D)
+    slot_pos: torch.Tensor,  # (B, L) absolute position per slot, -1 = empty
+    pos: torch.Tensor,       # (B,) current query position
+    *,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    B, _, H, D = q.shape
+    _, L, KV, _ = k_cache.shape
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,blkd->bkgl", qf, k_cache.float()) / math.sqrt(D)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - slot_pos) < window
+    if chunk > 0:
+        valid &= torch.div(slot_pos, chunk, rounding_mode="floor") == \
+            torch.div(pos[:, None], chunk, rounding_mode="floor")
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid.any(-1)[:, None, None, None], p, torch.zeros_like(p))
+    o = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)

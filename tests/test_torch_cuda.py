@@ -1,0 +1,119 @@
+"""repro_torch on the card: the CUDA kernels against their plain versions,
+and the serve path through them.  Every test needs a CUDA card and skips
+without one; this file imports no jax, so it runs on a machine that has
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
+
+Tolerances: f32 1e-5 (the card sums in another order and uses expf),
+bf16 2e-2 (the reference's bf16 tolerance)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_arch, smoke_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.models.steps import make_decode_step, make_prefill_step
+from repro_torch.models.transformer import Transformer
+from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
+from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+CASES = [
+    # (B, S, H, KV, D, causal, window, chunk, softcap)
+    (2, 256, 4, 2, 64, True, 0, 0, 0.0),
+    (1, 512, 4, 4, 64, False, 0, 0, 0.0),
+    (1, 512, 8, 1, 64, True, 0, 0, 0.0),      # MQA
+    (1, 1024, 4, 2, 64, True, 256, 0, 0.0),   # sliding window
+    (1, 1024, 2, 2, 64, True, 0, 256, 0.0),   # chunked
+    (2, 256, 4, 4, 128, True, 0, 0, 0.0),     # d_head 128
+    (1, 256, 8, 2, 128, True, 0, 0, 0.0),     # GQA 4:1
+    (1, 256, 2, 2, 64, True, 0, 0, 30.0),     # softcap
+    (1, 333, 4, 2, 128, True, 0, 0, 0.0),     # ragged S
+    (2, 40, 4, 2, 16, False, 0, 0, 0.0),      # smoke width, one partial tile
+    (1, 96, 2, 1, 32, True, 0, 0, 0.0),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(case, dtype, device):
+    B, S, H, KV, D = case[:5]
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.standard_normal(s, np.float32)).to(device, dtype)
+                 for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_plain(cuda, case, dtype):
+    causal, window, chunk, softcap = case[5:]
+    q, k, v = _qkv(case, dtype, cuda)
+    kw = dict(causal=causal, window=window, chunk=chunk, softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+
+
+def test_kernel_reads_strided_inputs(cuda):
+    """q/k/v are read through their strides: a (B, S, H, D) view of a
+    larger buffer (last dim contiguous) gives the same result as a copy."""
+    big = torch.randn((2, 128, 12, 64), device=cuda)
+    q, k, v = big[:, :, :4], big[:, :, 4:6], big[:, :, 6:8]
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_wrapper_rejects_on_card(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3), q)
+    with pytest.raises(ValueError, match="head dim 256"):
+        z = torch.zeros((1, 8, 2, 256), device=cuda)
+        fa.flash_attention(z, z, z)
+
+
+@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b"])
+def test_smoke_model_on_card_matches_cpu(cuda, arch):
+    cfg = smoke_config(get_arch(arch))
+    cpu = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2)
+    gpu = Transformer(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (2, 70)))
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        logits, cache = prefill({"tokens": tokens.to(dev)})
+        seq = [logits.cpu()]
+        for _ in range(3):
+            logits, cache = decode(cache, logits[:, -1].argmax(-1)[:, None])
+            seq.append(logits.cpu())
+        outs.append(torch.stack(seq))
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), atol=1e-4)
+
+
+def test_server_on_card_launches_the_kernel_per_layer_per_prefill(cuda):
+    cfg = smoke_config(get_arch("rsc-llm"))
+    scfg = ServeConfig(batch=2, prompt_len=64, max_new_tokens=6)
+    fa.launches = 0
+    clean = Server(cfg, scfg).run()
+    assert fa.launches == cfg.n_layers
+    fa.launches = 0
+    faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
+    assert fa.launches == 2 * cfg.n_layers and faulted.retries == 1
+    np.testing.assert_array_equal(clean.outputs, faulted.outputs)
