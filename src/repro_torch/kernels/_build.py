@@ -104,6 +104,8 @@ def load() -> ctypes.CDLL:
         [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 3
         + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = i32
+    lib.wkv6_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
+    lib.wkv6_fwd.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -4,13 +4,17 @@
 kernel wrapper (which takes the plain version only for CPU tensors).  Other
 shapes run the plain version on the CPU and are not yet ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
+``wkv6`` always goes to the kernel wrapper, with or without a state.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as k6
 
 
 def flash_attention(
@@ -47,3 +51,14 @@ def decode_attention(
 ) -> torch.Tensor:
     return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
                                     window=window, chunk=chunk, softcap=softcap)
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # per-step decay in (0, 1)
+    u: torch.Tensor,  # (H, D)
+    state: Optional[torch.Tensor] = None,  # (B, H, D, D) f32, updated in place
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return k6.wkv6(r, k, v, w, u, state)

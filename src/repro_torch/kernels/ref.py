@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention oracles in ``repro.kernels.ref``.
+"""Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention,
+decode attention and the RWKV-6 WKV recurrence.
 
 They are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They favour clarity over memory: the
@@ -86,3 +87,31 @@ def decode_attention_ref(
     p = torch.where(valid.any(-1)[:, None, None, None], p, torch.zeros_like(p))
     o = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def wkv6_ref(
+    r: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, H, D)
+    v: torch.Tensor,  # (B, S, H, D)
+    w: torch.Tensor,  # (B, S, H, D) per-step decay in (0, 1)
+    u: torch.Tensor,  # (H, D) bonus for the current token
+    state: torch.Tensor | None = None,  # (B, H, D, D) [key-dim x value-dim]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 (Finch) recurrence, exact sequential form, in f32.
+
+    out_t = r_t . (S_t + diag(u) k_t^T v_t);  S_{t+1} = diag(w_t) S_t + k_t^T v_t
+
+    Returns (out in r's dtype, final state in f32).
+    """
+    B, S, H, D = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    out = torch.stack(outs, 1) if outs else torch.zeros_like(rf)
+    return out.to(r.dtype), s

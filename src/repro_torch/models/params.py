@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
@@ -19,8 +19,11 @@ import torch
 class ParamDef:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | custom
     init_scale: float = 1.0
+    # used when init == "custom": init_fn(shape, dtype, generator) -> tensor
+    # on generator.device
+    init_fn: Optional[Callable] = None
 
 
 def flatten(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -58,6 +61,8 @@ def materialize(defs: Any, seed: int = 0,
             out[path] = torch.zeros(d.shape, dtype=d.dtype, device=device)
         elif d.init == "ones":
             out[path] = torch.ones(d.shape, dtype=d.dtype, device=device)
+        elif d.init == "custom":
+            out[path] = d.init_fn(d.shape, d.dtype, gen)
         else:
             out[path] = normal_init(d.shape, d.dtype, d.init_scale, gen)
     return out

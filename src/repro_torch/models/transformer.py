@@ -5,11 +5,12 @@
 checkpoint flatten paths (``embed``, ``groups/0/p0/attn/wq``, ``ln_f``,
 ``lm_head``), each block group's layers stacked on a leading ``repeats`` axis.
 A ``for`` loop over the stacked layer index takes the place of ``lax.scan``.
-Only dense models with global attention are ported; every other feature
-raises ``NotImplementedError`` when the model is built.
+Global-attention layers (dense FFN) and RWKV-6 layers are ported; every
+other feature raises ``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -17,6 +18,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pmod
+from repro_torch.models import recurrent
 from repro_torch.models.layers import (
     attention_defs,
     decode_self_attention,
@@ -31,8 +33,12 @@ from repro_torch.models.params import ParamDef
 # ---------------------------------------------------------------------------
 # Parameter definitions
 # ---------------------------------------------------------------------------
-def layer_defs(cfg: ArchConfig) -> dict:
-    """One global-attention layer (the only kind ported)."""
+PORTED_KINDS = ("global", "rwkv")
+
+
+def layer_defs(cfg: ArchConfig, kind: str) -> dict:
+    if kind == "rwkv":
+        return recurrent.rwkv_defs(cfg)
     d = cfg.d_model
     return {
         "ln1": ParamDef((d,), init="ones"),
@@ -45,23 +51,24 @@ def layer_defs(cfg: ArchConfig) -> dict:
 def _stack(defs: Any, n: int) -> Any:
     if isinstance(defs, dict):
         return {k: _stack(v, n) for k, v in defs.items()}
-    return ParamDef((n,) + defs.shape, defs.dtype, defs.init, defs.init_scale)
+    return dataclasses.replace(defs, shape=(n,) + defs.shape)
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every feature outside the dense global-attention slice."""
+    """Raise for every feature outside the ported slices: dense global
+    attention and RWKV-6."""
     unsupported = {
         "MoE": cfg.moe is not None,
         "enc_dec": cfg.enc_dec,
         "n_patches": cfg.n_patches > 0,
-        "rwkv / rglru": cfg.rwkv is not None or cfg.rglru is not None,
+        "rglru": cfg.rglru is not None,
         "attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
     }
     for name, hit in unsupported.items():
         if hit:
             raise NotImplementedError(f"{cfg.name}: {name} is not ported yet")
     for kind in cfg.layer_kinds():
-        if kind != "global":
+        if kind not in PORTED_KINDS:
             raise NotImplementedError(f"{cfg.name}: {kind!r} layers are not ported yet")
 
 
@@ -69,7 +76,7 @@ def model_defs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     groups = [
-        {f"p{i}": _stack(layer_defs(cfg), repeats) for i in range(len(pattern))}
+        {f"p{i}": _stack(layer_defs(cfg, kind), repeats) for i, kind in enumerate(pattern)}
         for pattern, repeats in cfg.block_groups
     ]
     defs: dict[str, Any] = {
@@ -101,19 +108,27 @@ def _nest(flat: dict[str, torch.Tensor], prefix: str, r: int) -> dict:
 # Layer application
 # ---------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
-                causal: bool = True, positions: Optional[torch.Tensor] = None):
-    """Full-sequence layer. Returns (h, k, v) — k/v feed the prefill cache."""
+                causal: bool = True, positions: Optional[torch.Tensor] = None,
+                state: Optional[dict] = None):
+    """Full-sequence layer. Returns (h, cache entry): {"k", "v"} (the last
+    ``kv_cache_len`` positions) for attention, the final state for rwkv
+    (written into ``state`` when it is given, zeros on entry)."""
+    if kind == "rwkv":
+        return recurrent.rwkv_block(p, h, cfg, state=state)
     a_out, (k, v) = self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         causal=causal, positions=positions)
     h = h + a_out
     h = h + ffn(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps))
-    return h, k, v
+    L = cfg.kv_cache_len(kind, k.shape[1])
+    return h, {"k": k[:, -L:], "v": v[:, -L:]}
 
 
 def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
                        cache: dict, pos: int):
     """One-token layer. Updates ``cache`` in place and returns (h, cache)."""
+    if kind == "rwkv":
+        return recurrent.rwkv_block(p, h, cfg, state=cache)
     a_out, cache["k"], cache["v"] = decode_self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         cache["k"], cache["v"], pos)
@@ -123,7 +138,8 @@ def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """Dense decoder-only transformer with stacked per-group weights.
+    """Decoder-only model (global attention or RWKV-6 layers) with stacked
+    per-group weights.
 
     ``dtype`` is the compute dtype and the dtype of the weights and caches.
     Weights are random from ``seed``; ``load_state_dict`` (keyed by flatten
@@ -157,7 +173,9 @@ class Transformer(nn.Module):
                    positions: Optional[torch.Tensor] = None,
                    collect_cache: bool = False):
         """Apply all block groups. Returns (h, caches|None); each group's
-        cache is {"p{i}": {"k", "v"}} stacked over the group's layers."""
+        cache is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"}
+        or {"S", "ts1", "ts2"}) stacked over the group's layers. An rwkv
+        layer's state is written straight into its slice of the stack."""
         flat = self.flat
         caches = []
         for g, (pattern, repeats) in enumerate(self.cfg.block_groups):
@@ -165,19 +183,23 @@ class Transformer(nn.Module):
             for r in range(repeats):
                 for i, kind in enumerate(pattern):
                     p = _nest(flat, f"groups/{g}/p{i}/", r)
-                    h, k, v = apply_layer(self.cfg, kind, p, h, causal=causal,
-                                          positions=positions)
-                    if not collect_cache:
+                    state = None
+                    if collect_cache and kind == "rwkv":
+                        if r == 0:
+                            cache_g[f"p{i}"] = recurrent.rwkv_init_state(
+                                self.cfg, h.shape[0], h.device, stack=repeats)
+                        state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
+                    h, entry = apply_layer(self.cfg, kind, p, h, causal=causal,
+                                           positions=positions, state=state)
+                    if not collect_cache or kind == "rwkv":
                         continue
-                    L = self.cfg.kv_cache_len(kind, k.shape[1])
                     if r == 0:
-                        shape = (repeats,) + k[:, -L:].shape
                         cache_g[f"p{i}"] = {
-                            "k": torch.empty(shape, dtype=self.dtype, device=k.device),
-                            "v": torch.empty(shape, dtype=self.dtype, device=v.device),
-                        }
-                    cache_g[f"p{i}"]["k"][r] = k[:, -L:]
-                    cache_g[f"p{i}"]["v"][r] = v[:, -L:]
+                            name: torch.empty((repeats,) + t.shape, dtype=t.dtype,
+                                              device=t.device)
+                            for name, t in entry.items()}
+                    for name, t in entry.items():
+                        cache_g[f"p{i}"][name][r] = t
             caches.append(cache_g)
         return h, (caches if collect_cache else None)
 
@@ -188,7 +210,7 @@ class Transformer(nn.Module):
             for r in range(repeats):
                 for i, kind in enumerate(pattern):
                     p = _nest(flat, f"groups/{g}/p{i}/", r)
-                    layer_cache = {"k": gcache[f"p{i}"]["k"][r], "v": gcache[f"p{i}"]["v"][r]}
+                    layer_cache = {name: t[r] for name, t in gcache[f"p{i}"].items()}
                     h, _ = decode_apply_layer(self.cfg, kind, p, h, layer_cache, pos)
         return h, cache_groups
 

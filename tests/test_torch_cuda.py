@@ -5,8 +5,9 @@ only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
-Tolerances: f32 1e-5 (the card sums in another order and uses expf),
-bf16 2e-2 (the reference's bf16 tolerance)."""
+Tolerances: flash attention f32 1e-5 (the card sums in another order and
+uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
+reference's own, f32 5e-5, bf16 5e-2."""
 import numpy as np
 import pytest
 import torch
@@ -14,12 +15,14 @@ import torch
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as k6
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+WKV_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 
 CASES = [
     # (B, S, H, KV, D, causal, window, chunk, softcap)
@@ -88,7 +91,64 @@ def test_wrapper_rejects_on_card(cuda):
         fa.flash_attention(z, z, z)
 
 
-@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b"])
+def _wkv_inputs(B, S, H, D, dtype, device, state=False):
+    """The reference test's distribution (tests/test_kernels.py)."""
+    rng = np.random.default_rng(0)
+    n = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    r, k, v = (n(B, S, H, D) * 0.5 for _ in range(3))
+    w = torch.sigmoid(n(B, S, H, D)) * 0.5 + 0.45
+    out = [t.to(device, dtype) for t in (r, k, v, w, n(H, D) * 0.3)]
+    if state:
+        out.append((n(B, H, D, D) * 0.5).to(device))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,state", [
+    ((1, 128, 2, 16), False), ((2, 256, 4, 32), False), ((1, 64, 8, 64), False),
+    ((2, 100, 4, 64), False),   # ragged S (not a multiple of the chunk)
+    ((2, 77, 4, 32), True),     # with an initial state
+    ((4, 1, 8, 64), True),      # one decode step
+    ((3, 5, 2, 16), True),
+])
+def test_wkv6_kernel_matches_plain(cuda, shape, state, dtype):
+    args = _wkv_inputs(*shape, dtype, cuda, state=state)
+    want, s_want = ref.wkv6_ref(*args)  # before the kernel updates the state in place
+    before = k6.launches
+    out, s = k6.wkv6(*args)
+    assert k6.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == shape and s.dtype == torch.float32
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=WKV_TOL[dtype])
+    np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(), atol=WKV_TOL[dtype])
+
+
+def test_wkv6_updates_the_state_in_place(cuda):
+    args = _wkv_inputs(2, 1, 4, 64, torch.bfloat16, cuda, state=True)
+    want, s_want = ref.wkv6_ref(*args)
+    st = args[-1]
+    out, s = k6.wkv6(*args)
+    torch.cuda.synchronize()
+    assert s is st
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), atol=5e-2)
+    np.testing.assert_allclose(st.cpu().numpy(), s_want.cpu().numpy(), atol=5e-2)
+
+
+def test_wkv6_reads_strided_inputs(cuda):
+    """r, k, v, w as (B, S, H, D) views of one larger buffer (last dim
+    contiguous) give the same result as copies."""
+    big = torch.randn((2, 40, 16, 32), device=cuda) * 0.5
+    r, k, v = big[:, :, :4], big[:, :, 4:8], big[:, :, 8:12]
+    w = torch.sigmoid(big[:, :, 12:16]) * 0.5 + 0.45
+    u = torch.randn((4, 32), device=cuda) * 0.3
+    got = k6.wkv6(r, k, v, w, u)
+    want = k6.wkv6(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(), u)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     cfg = smoke_config(get_arch(arch))
     cpu = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2)
@@ -116,4 +176,18 @@ def test_server_on_card_launches_the_kernel_per_layer_per_prefill(cuda):
     fa.launches = 0
     faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
     assert fa.launches == 2 * cfg.n_layers and faulted.retries == 1
+    np.testing.assert_array_equal(clean.outputs, faulted.outputs)
+
+
+def test_server_on_card_launches_wkv6_per_layer_per_step(cuda):
+    """rwkv6-7b: one launch per layer for the prefill and for every decode
+    step; a crash before decode step 3 adds a prefill and 3 steps."""
+    cfg = smoke_config(get_arch("rwkv6-7b"))
+    scfg = ServeConfig(batch=2, prompt_len=40, max_new_tokens=6)
+    k6.launches = fa.launches = 0
+    clean = Server(cfg, scfg).run()
+    assert k6.launches == cfg.n_layers * (1 + 6) and fa.launches == 0
+    k6.launches = 0
+    faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
+    assert k6.launches == cfg.n_layers * ((1 + 3) + (1 + 6)) and faulted.retries == 1
     np.testing.assert_array_equal(clean.outputs, faulted.outputs)

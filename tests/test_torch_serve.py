@@ -2,7 +2,8 @@
 same weights, and the port's Server on the CPU.
 
 A subprocess with REPRO_COMPUTE_DTYPE=float32 (read when repro is imported)
-materializes JAX params for smoke rsc-llm and qwen3-0.6b, cast to bf16 as
+materializes JAX params for smoke rsc-llm, qwen3-0.6b and rwkv6-7b, cast to
+bf16 as
 the JAX Server casts them, runs prefill + 6 greedy decode steps and the JAX
 Server, and saves weights (checkpoint encoding), logits and tokens to an
 npz.  The port loads the same weights and runs in f32 on the CPU.
@@ -19,7 +20,7 @@ from repro.checkpoint.manager import _flatten
 from repro.configs.base import get_arch as jget_arch
 from repro.configs.base import smoke_config as jsmoke
 from repro.models import transformer as jtransformer
-from repro_torch.configs.base import get_arch, smoke_config
+from repro_torch.configs.base import RGLRUSpec, get_arch, smoke_config
 from repro_torch.models import convert
 from repro_torch.models import params as pmod
 from repro_torch.models.steps import make_decode_step, make_prefill_step
@@ -28,7 +29,7 @@ from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from tests.conftest import run_subprocess_py
 
-ARCHS = ("rsc-llm", "qwen3-0.6b")
+ARCHS = ("rsc-llm", "qwen3-0.6b", "rwkv6-7b")
 N_DECODE = 6
 ATOL = 1e-4
 
@@ -190,6 +191,10 @@ def test_server_output_deterministic(cfg):
 @pytest.mark.parametrize("feature", [
     dict(attn_logit_softcap=30.0), dict(enc_dec=True), dict(n_patches=4),
     dict(block_groups=((("local",), 2),), window=8),
+    # recurrentgemma-9b at smoke size: rglru + local attention, MQA
+    dict(n_layers=8, block_groups=((("rglru", "rglru", "local"), 2), (("rglru",), 2)),
+         window=64, n_kv_heads=1, tie_embeddings=True,
+         rglru=RGLRUSpec(lru_width=64, conv_width=4, n_heads=4)),
 ])
 def test_unported_features_raise(cfg, feature):
     with pytest.raises(NotImplementedError):
@@ -199,15 +204,23 @@ def test_unported_features_raise(cfg, feature):
 def test_materialize_keeps_the_reference_init_rule():
     """std = scale / sqrt(prod(shape[:-1])) over the stacked shape, on the
     requested device, reproducible from the seed; names follow the
-    reference's flatten order."""
+    reference's flatten order; a "custom" init (rwkv's decay w0) gives the
+    reference's values up to f32 rounding."""
     defs = {"w": pmod.ParamDef((4, 64, 256)), "g": pmod.ParamDef((8,), init="ones")}
     a, b = pmod.materialize(defs, seed=5), pmod.materialize(defs, seed=5)
     assert torch.equal(a["w"], b["w"]) and torch.equal(a["g"], torch.ones(8))
     assert abs(a["w"].std().item() * (4 * 64) ** 0.5 - 1.0) < 0.02
-    jdefs = jtransformer.model_defs(jsmoke(jget_arch("qwen3-0.6b")))
-    tdefs = model_defs(smoke_config(get_arch("qwen3-0.6b")))
-    jflat = _flatten(jdefs)  # ParamDefs are leaves of the JAX tree
-    tflat = dict(pmod.flatten(tdefs))
-    assert list(tflat) == list(jflat)
-    assert all(tflat[k].shape == jflat[k].shape and tflat[k].init == jflat[k].init
-               for k in tflat)
+    for arch in ("qwen3-0.6b", "rwkv6-7b"):
+        jdefs = jtransformer.model_defs(jsmoke(jget_arch(arch)))
+        tdefs = model_defs(smoke_config(get_arch(arch)))
+        jflat = _flatten(jdefs)  # ParamDefs are leaves of the JAX tree
+        tflat = dict(pmod.flatten(tdefs))
+        assert list(tflat) == list(jflat)
+        assert all(tflat[k].shape == jflat[k].shape and tflat[k].init == jflat[k].init
+                   for k in tflat)
+    custom = [k for k in tflat if tflat[k].init == "custom"]
+    assert custom == ["groups/0/p0/w0"]
+    want = jflat[custom[0]].init_fn(None, jflat[custom[0]].shape, jflat[custom[0]].dtype)
+    got = pmod.materialize({"w0": tflat[custom[0]]}, seed=5)["w0"]
+    # jnp.linspace and torch.linspace round differently in the last bit
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
