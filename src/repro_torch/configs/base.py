@@ -151,7 +151,7 @@ def _ensure_loaded() -> None:
 
     if _REGISTRY.get("__loaded__"):
         return
-    for mod in ("qwen3_0_6b", "rsc_llm", "rwkv6_7b"):
+    for mod in ("qwen3_0_6b", "recurrentgemma_9b", "rsc_llm", "rwkv6_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _REGISTRY["__loaded__"] = True  # type: ignore[assignment]
 

@@ -106,6 +106,8 @@ def load() -> ctypes.CDLL:
     lib.flash_attention_fwd.restype = i32
     lib.wkv6_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
     lib.wkv6_fwd.restype = i32
+    lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 4 + [ptr]
+    lib.rglru_fwd.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -22,7 +22,9 @@
 // true f32 products (no TF32, no bf16 staging). q/k/v are read in their
 // (B, S, H, D) layout through the strides passed in; the last dim must be
 // contiguous. A ragged last tile is masked, so any S works. D is a template
-// argument: 16 and 32 (the smoke configs), 64 and 128.
+// argument: 16 and 32 (the smoke configs), 64, 128 and 256 (recurrentgemma-9b;
+// its 213,760 bytes of staging fit under the 232,448-byte opt-in limit, one
+// block per SM, as at 128).
 //
 // What the simple design leaves on the table: no tensor cores (wgmma or
 // mma.sync), no TMA / cp.async pipelining of the next tile, and element-wise
@@ -261,11 +263,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (D == 32) return (int)launch<float, 32>(p, s);
     if (D == 64) return (int)launch<float, 64>(p, s);
     if (D == 128) return (int)launch<float, 128>(p, s);
+    if (D == 256) return (int)launch<float, 256>(p, s);
   } else if (dtype == 1) {
     if (D == 16) return (int)launch<__nv_bfloat16, 16>(p, s);
     if (D == 32) return (int)launch<__nv_bfloat16, 32>(p, s);
     if (D == 64) return (int)launch<__nv_bfloat16, 64>(p, s);
     if (D == 128) return (int)launch<__nv_bfloat16, 128>(p, s);
+    if (D == 256) return (int)launch<__nv_bfloat16, 256>(p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

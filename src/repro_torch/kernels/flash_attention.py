@@ -15,7 +15,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 launches = 0  # kernel launches since the last reset; the CPU path does not count
 

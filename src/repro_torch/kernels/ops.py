@@ -4,7 +4,9 @@
 kernel wrapper (which takes the plain version only for CPU tensors).  Other
 shapes run the plain version on the CPU and are not yet ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
-``wkv6`` always goes to the kernel wrapper, with or without a state.
+``wkv6`` and ``rglru`` always go to their kernel wrappers, with or without
+a state.  ``causal_conv1d`` is plain PyTorch, as the reference computes it
+in jnp outside any kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as kg
 from repro_torch.kernels import wkv6 as k6
 
 
@@ -62,3 +65,29 @@ def wkv6(
     state: Optional[torch.Tensor] = None,  # (B, H, D, D) f32, updated in place
 ) -> tuple[torch.Tensor, torch.Tensor]:
     return k6.wkv6(r, k, v, w, u, state)
+
+
+def rglru(
+    x: torch.Tensor,      # (B, S, W) gated input
+    log_a: torch.Tensor,  # (B, S, W) log recurrence coefficient (<= 0)
+    h0: Optional[torch.Tensor] = None,  # (B, W) f32, updated in place
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return kg.rglru(x, log_a, h0)
+
+
+def causal_conv1d(
+    x: torch.Tensor,  # (B, S, W)
+    w: torch.Tensor,  # (K, W) depthwise taps, w[-1] multiplies x_t
+    state: Optional[torch.Tensor] = None,  # (B, K-1, W) trailing context
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv in x's dtype, summed tap by tap in the
+    reference's order.  Returns (out, the last K-1 inputs in x's dtype)."""
+    B, S, W = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # (B, S+K-1, W)
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + xp[:, i:i + S] * w[i]
+    return out, xp[:, S:]

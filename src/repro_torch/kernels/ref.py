@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention,
-decode attention and the RWKV-6 WKV recurrence.
+decode attention, the RWKV-6 WKV recurrence and the RG-LRU recurrence.
 
 They are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They favour clarity over memory: the
@@ -115,3 +115,29 @@ def wkv6_ref(
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, 1) if outs else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def rglru_ref(
+    x: torch.Tensor,      # (B, S, W) gated input (i_t * x_t)
+    log_a: torch.Tensor,  # (B, S, W) log recurrence coefficient, <= 0
+    h0: torch.Tensor | None = None,  # (B, W)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU linear recurrence, exact sequential form, in f32.
+
+    h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 1e-12)) * x_t,  a_t = exp(log_a_t)
+
+    Returns (h in x's dtype, final h in f32).
+    """
+    B, S, W = x.shape
+    xf = x.float()
+    laf = log_a.float()
+    a = torch.exp(laf)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * laf), min=1e-12)) * xf
+    h = (torch.zeros((B, W), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    out = torch.stack(hs, 1) if hs else torch.zeros_like(xf)
+    return out.to(x.dtype), h

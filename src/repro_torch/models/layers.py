@@ -83,9 +83,12 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "global":
+def _window(cfg: ArchConfig, kind: str) -> int:
+    """The sliding window of a ``kind`` layer (0 = unbounded); "chunked"
+    layers are not ported and raise."""
+    if kind not in ("global", "local"):
         raise NotImplementedError(f"{kind!r} attention layers are not ported yet")
+    return cfg.window if kind == "local" else 0
 
 
 def self_attention(
@@ -98,9 +101,9 @@ def self_attention(
     positions: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (attn output, (k, v)) — k/v reused for prefill cache writes."""
-    _check_kind(kind)
+    window = _window(cfg, kind)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=causal,
+    o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_logit_softcap)
     return _out_proj(o, p["wo"]), (k, v)
 
@@ -118,9 +121,13 @@ def decode_self_attention(
 
     Unlike the reference, the caches are updated in place (the new key and
     value go to ring slot ``pos % L``), which saves a copy of each cache per
-    layer and step.
+    layer and step.  Like the reference, a local layer takes slot ``i`` to
+    hold position ``pos - ((pos - i) % L)``; that is true of a prefill cache
+    only when the prompt length is a multiple of L (the prefill keeps the
+    last L keys in linear order), and the port keeps the reference's
+    semantics.
     """
-    _check_kind(kind)
+    window = _window(cfg, kind)
     B = x.shape[0]
     L = k_cache.shape[1]
     positions = torch.tensor([pos], device=x.device)
@@ -128,14 +135,18 @@ def decode_self_attention(
     slot = pos % L  # ring slot (== pos for a full-length global cache)
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-    # absolute position stored in each slot (global kind)
+    # absolute position the reference assigns to each slot of the ring
     idx = torch.arange(L, device=x.device)
-    slot_pos = torch.where(idx <= pos, idx, torch.full_like(idx, -1))
+    if kind == "global":
+        slot_pos = torch.where(idx <= pos, idx, torch.full_like(idx, -1))
+    else:
+        cand = pos - torch.remainder(pos - idx, L)
+        slot_pos = torch.where(cand >= 0, cand, torch.full_like(cand, -1))
     slot_pos = slot_pos[None].expand(B, L)
     o = ops.decode_attention(
         q, k_cache, v_cache, slot_pos,
         torch.full((B,), pos, dtype=torch.long, device=x.device),
-        softcap=cfg.attn_logit_softcap)
+        window=window, softcap=cfg.attn_logit_softcap)
     return _out_proj(o, p["wo"]), k_cache, v_cache
 
 

@@ -1,11 +1,13 @@
-"""Recurrent blocks (after ``repro.models.recurrent``): RWKV-6 (Finch).
+"""Recurrent blocks (after ``repro.models.recurrent``): RWKV-6 (Finch) and
+the RG-LRU block of RecurrentGemma.
 
-The block runs the full sequence (prefill, S tokens) and decode (S = 1) with
-the same code, against a recurrent state
+Each block runs the full sequence (prefill, S tokens) and decode (S = 1)
+with the same code, against a recurrent state
 
-    {"S": (B, H, Dk, Dv) f32 WKV matrix, "ts1": (B, d) f32, "ts2": (B, d) f32}
+    rwkv:  {"S": (B, H, Dk, Dv) f32 WKV matrix, "ts1": (B, d) f32, "ts2": (B, d) f32}
+    rglru: {"h": (B, W) f32, "conv": (B, K-1, W) f32 conv context}
 
-Unlike the reference, which returns a new state, the block updates the state
+Unlike the reference, which returns a new state, a block updates the state
 it is given in place and returns it, which saves a copy of every layer's
 state per decode step; without a state it starts from zeros.
 """
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import ffn, ffn_defs, rms_norm
 from repro_torch.models.params import ParamDef
 
 
@@ -135,4 +137,84 @@ def rwkv_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
     st["ts1"].copy_(xn[:, -1])
     st["ts2"].copy_(xn2[:, -1])
+    return x, st
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma)
+# ---------------------------------------------------------------------------
+def _lam_init(shape: tuple[int, ...], dtype: torch.dtype,
+              generator: torch.Generator) -> torch.Tensor:
+    # a ~ U(0.9, 0.999), lam = softplus^-1(-log(a) / 8), so that
+    # exp(-8 softplus(lam)) = a: the recurrence's decay at a gate of 1
+    a = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device) * (0.999 - 0.9) + 0.9
+    sp = -torch.log(a) / 8.0
+    return torch.log(torch.expm1(sp)).to(dtype)
+
+
+def rglru_defs(cfg: ArchConfig) -> dict:
+    if cfg.rglru is None:
+        raise ValueError(f"{cfg.name} has no RG-LRU spec")
+    d = cfg.d_model
+    W, nh, Kc = cfg.rglru.lru_width, cfg.rglru.n_heads, cfg.rglru.conv_width
+    wh = W // nh
+    return {
+        "ln1": ParamDef((d,), init="ones"),
+        "w_y": ParamDef((d, W)),
+        "w_x": ParamDef((d, W)),
+        "conv_w": ParamDef((Kc, W), init_scale=0.5),
+        "gate_a_w": ParamDef((nh, wh, wh), init_scale=0.5),
+        "gate_a_b": ParamDef((nh, wh), init="zeros"),
+        "gate_i_w": ParamDef((nh, wh, wh), init_scale=0.5),
+        "gate_i_b": ParamDef((nh, wh), init="zeros"),
+        "lam": ParamDef((W,), init="custom", init_fn=_lam_init),
+        "w_out": ParamDef((W, d)),
+        "ln2": ParamDef((d,), init="ones"),
+        "ffn": ffn_defs(cfg),
+    }
+
+
+def rglru_init_state(cfg: ArchConfig, batch: int, device: torch.device | str = "cpu",
+                     stack: Optional[int] = None) -> dict:
+    """Zero state; with ``stack``, one per layer on a leading axis."""
+    W, Kc = cfg.rglru.lru_width, cfg.rglru.conv_width
+    lead = (batch,) if stack is None else (stack, batch)
+    return {
+        "h": torch.zeros(lead + (W,), dtype=torch.float32, device=device),
+        "conv": torch.zeros(lead + (Kc - 1, W), dtype=torch.float32, device=device),
+    }
+
+
+def _head_gate(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sigmoid(einsum("bshw,hwu->bshu", xh, w) + b), contiguous (B, S, nh, wh)."""
+    g = torch.einsum("bshw,hwu->bshu", xh, w.to(xh.dtype)).contiguous()
+    return torch.sigmoid(g + b.to(xh.dtype))
+
+
+def rglru_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """x (B, S, d) -> (x, state); ``state`` is updated in place."""
+    B, S, d = x.shape
+    W, nh = cfg.rglru.lru_width, cfg.rglru.n_heads
+    wh = W // nh
+    dt = x.dtype
+    st = state if state is not None else rglru_init_state(cfg, B, x.device)
+
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y = F.gelu(xn @ p["w_y"].to(dt), approximate="tanh")  # jax.nn.gelu's form
+    xb = xn @ p["w_x"].to(dt)
+    xc, conv_new = ops.causal_conv1d(xb, p["conv_w"].to(dt), st["conv"])
+
+    xh = xc.view(B, S, nh, wh)
+    rg = _head_gate(xh, p["gate_a_w"], p["gate_a_b"])
+    ig = _head_gate(xh, p["gate_i_w"], p["gate_i_b"])
+    sp_lam = F.softplus(p["lam"].float()).view(nh, wh)
+    log_a = (-8.0 * sp_lam * rg.float()).view(B, S, W)
+    gated = (ig * xh).view(B, S, W)
+    h, _ = ops.rglru(gated, log_a, st["h"])
+
+    x = x + (h * y) @ p["w_out"].to(dt)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    st["conv"].copy_(conv_new)  # x's dtype, kept as f32 as the reference does
     return x, st

@@ -5,8 +5,9 @@
 checkpoint flatten paths (``embed``, ``groups/0/p0/attn/wq``, ``ln_f``,
 ``lm_head``), each block group's layers stacked on a leading ``repeats`` axis.
 A ``for`` loop over the stacked layer index takes the place of ``lax.scan``.
-Global-attention layers (dense FFN) and RWKV-6 layers are ported; every
-other feature raises ``NotImplementedError`` when the model is built.
+Global- and local-attention layers (dense FFN), RWKV-6 layers and RG-LRU
+layers are ported; every other feature raises ``NotImplementedError`` when
+the model is built.
 """
 from __future__ import annotations
 
@@ -33,12 +34,17 @@ from repro_torch.models.params import ParamDef
 # ---------------------------------------------------------------------------
 # Parameter definitions
 # ---------------------------------------------------------------------------
-PORTED_KINDS = ("global", "rwkv")
+PORTED_KINDS = ("global", "local", "rwkv", "rglru")
+# recurrent kinds: (block, zero state); the block updates a given state in place
+RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
+             "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}
 
 
 def layer_defs(cfg: ArchConfig, kind: str) -> dict:
     if kind == "rwkv":
         return recurrent.rwkv_defs(cfg)
+    if kind == "rglru":
+        return recurrent.rglru_defs(cfg)
     d = cfg.d_model
     return {
         "ln1": ParamDef((d,), init="ones"),
@@ -55,13 +61,12 @@ def _stack(defs: Any, n: int) -> Any:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every feature outside the ported slices: dense global
-    attention and RWKV-6."""
+    """Raise for every feature outside the ported slices: dense global and
+    local attention, RWKV-6 and RG-LRU."""
     unsupported = {
         "MoE": cfg.moe is not None,
         "enc_dec": cfg.enc_dec,
         "n_patches": cfg.n_patches > 0,
-        "rglru": cfg.rglru is not None,
         "attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
     }
     for name, hit in unsupported.items():
@@ -111,10 +116,10 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
                 causal: bool = True, positions: Optional[torch.Tensor] = None,
                 state: Optional[dict] = None):
     """Full-sequence layer. Returns (h, cache entry): {"k", "v"} (the last
-    ``kv_cache_len`` positions) for attention, the final state for rwkv
-    (written into ``state`` when it is given, zeros on entry)."""
-    if kind == "rwkv":
-        return recurrent.rwkv_block(p, h, cfg, state=state)
+    ``kv_cache_len`` positions) for attention, the final state for rwkv and
+    rglru (written into ``state`` when it is given, zeros on entry)."""
+    if kind in RECURRENT:
+        return RECURRENT[kind][0](p, h, cfg, state=state)
     a_out, (k, v) = self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         causal=causal, positions=positions)
@@ -127,8 +132,8 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
 def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
                        cache: dict, pos: int):
     """One-token layer. Updates ``cache`` in place and returns (h, cache)."""
-    if kind == "rwkv":
-        return recurrent.rwkv_block(p, h, cfg, state=cache)
+    if kind in RECURRENT:
+        return RECURRENT[kind][0](p, h, cfg, state=cache)
     a_out, cache["k"], cache["v"] = decode_self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         cache["k"], cache["v"], pos)
@@ -138,8 +143,8 @@ def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """Decoder-only model (global attention or RWKV-6 layers) with stacked
-    per-group weights.
+    """Decoder-only model (global or local attention, RWKV-6 and RG-LRU
+    layers) with stacked per-group weights.
 
     ``dtype`` is the compute dtype and the dtype of the weights and caches.
     Weights are random from ``seed``; ``load_state_dict`` (keyed by flatten
@@ -173,9 +178,10 @@ class Transformer(nn.Module):
                    positions: Optional[torch.Tensor] = None,
                    collect_cache: bool = False):
         """Apply all block groups. Returns (h, caches|None); each group's
-        cache is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"}
-        or {"S", "ts1", "ts2"}) stacked over the group's layers. An rwkv
-        layer's state is written straight into its slice of the stack."""
+        cache is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"},
+        {"S", "ts1", "ts2"} or {"h", "conv"}) stacked over the group's
+        layers. A recurrent layer's state is written straight into its
+        slice of the stack."""
         flat = self.flat
         caches = []
         for g, (pattern, repeats) in enumerate(self.cfg.block_groups):
@@ -184,14 +190,14 @@ class Transformer(nn.Module):
                 for i, kind in enumerate(pattern):
                     p = _nest(flat, f"groups/{g}/p{i}/", r)
                     state = None
-                    if collect_cache and kind == "rwkv":
+                    if collect_cache and kind in RECURRENT:
                         if r == 0:
-                            cache_g[f"p{i}"] = recurrent.rwkv_init_state(
+                            cache_g[f"p{i}"] = RECURRENT[kind][1](
                                 self.cfg, h.shape[0], h.device, stack=repeats)
                         state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
                     h, entry = apply_layer(self.cfg, kind, p, h, causal=causal,
                                            positions=positions, state=state)
-                    if not collect_cache or kind == "rwkv":
+                    if not collect_cache or kind in RECURRENT:
                         continue
                     if r == 0:
                         cache_g[f"p{i}"] = {

@@ -7,7 +7,8 @@ only PyTorch:
 
 Tolerances: flash attention f32 1e-5 (the card sums in another order and
 uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
-reference's own, f32 5e-5, bf16 5e-2."""
+reference's own, f32 5e-5, bf16 5e-2; RG-LRU f32 1e-5 (the reference's
+between its kernel and its oracle) and one bf16 ulp for a bf16 output."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ import torch
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as kg
 from repro_torch.kernels import wkv6 as k6
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 from repro_torch.models.transformer import Transformer
@@ -37,6 +39,9 @@ CASES = [
     (1, 333, 4, 2, 128, True, 0, 0, 0.0),     # ragged S
     (2, 40, 4, 2, 16, False, 0, 0, 0.0),      # smoke width, one partial tile
     (1, 96, 2, 1, 32, True, 0, 0, 0.0),
+    (2, 256, 4, 1, 256, True, 0, 0, 0.0),     # d_head 256, MQA (recurrentgemma-9b)
+    (1, 1024, 4, 1, 256, True, 256, 0, 0.0),  # d_head 256, MQA, sliding window
+    (1, 300, 2, 1, 256, True, 128, 0, 0.0),   # d_head 256, ragged S
 ]
 
 
@@ -86,8 +91,8 @@ def test_wrapper_rejects_on_card(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3), q)
-    with pytest.raises(ValueError, match="head dim 256"):
-        z = torch.zeros((1, 8, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        z = torch.zeros((1, 8, 2, 48), device=cuda)
         fa.flash_attention(z, z, z)
 
 
@@ -148,7 +153,71 @@ def test_wkv6_reads_strided_inputs(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b"])
+def _rglru_inputs(B, S, W, x_dtype, la_dtype, device, state=False, seed=0):
+    """The reference test's distribution: x ~ N(0, 1), log_a =
+    -softplus(N(0, 1)), h0 ~ N(0, 1) (f32)."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    x = n(B, S, W).to(device, x_dtype)
+    la = (-torch.nn.functional.softplus(n(B, S, W))).to(device, la_dtype)
+    return x, la, (n(B, W).to(device) if state else None)
+
+
+def _check_rglru(got, want, x_dtype):
+    (out, h), (w_out, w_h) = got, want
+    assert out.dtype == x_dtype and h.dtype == torch.float32
+    w = w_out.float().cpu().numpy()
+    d = np.abs(out.float().cpu().numpy() - w)
+    if x_dtype == torch.float32:
+        assert d.max() <= 1e-5
+    else:  # one bf16 ulp of the output
+        assert (d <= 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)).all()
+    np.testing.assert_allclose(h.cpu().numpy(), w_h.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("types", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape,state", [
+    ((1, 128, 64), False), ((2, 256, 128), False), ((1, 64, 512), False),
+    ((1, 128, 64), True), ((2, 256, 128), True), ((1, 64, 512), True),
+    ((4, 1, 4096), True),    # one recurrentgemma-9b decode step
+    ((2, 77, 4000), True),   # ragged S and a ragged last block of W
+    ((3, 33, 100), False),
+])
+def test_rglru_kernel_matches_plain(cuda, shape, state, types):
+    x, la, h0 = _rglru_inputs(*shape, *types, cuda, state=state)
+    want = ref.rglru_ref(x, la, h0)  # before the kernel updates h0 in place
+    before = kg.launches
+    got = kg.rglru(x, la, h0)
+    assert kg.launches == before + 1
+    torch.cuda.synchronize()
+    assert got[0].shape == shape
+    _check_rglru(got, want, types[0])
+
+
+def test_rglru_updates_the_state_in_place(cuda):
+    x, la, h0 = _rglru_inputs(4, 1, 4096, torch.bfloat16, torch.float32, cuda, state=True)
+    want = ref.rglru_ref(x, la, h0)
+    got = kg.rglru(x, la, h0)
+    torch.cuda.synchronize()
+    assert got[1] is h0
+    _check_rglru(got, want, torch.bfloat16)
+
+
+def test_rglru_reads_strided_inputs(cuda):
+    """x and log_a as (B, S, W) views of larger buffers (last dim
+    contiguous) give the same result as copies."""
+    big = torch.randn((2, 50, 3, 96), device=cuda)
+    x = big[:, :, 0]
+    la = -torch.nn.functional.softplus(big[:, :, 1:3]).reshape(2, 50, 192)[:, :, 10:106]
+    got = kg.rglru(x, la)
+    want = kg.rglru(x.contiguous(), la.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     cfg = smoke_config(get_arch(arch))
     cpu = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2)
@@ -190,4 +259,24 @@ def test_server_on_card_launches_wkv6_per_layer_per_step(cuda):
     k6.launches = 0
     faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
     assert k6.launches == cfg.n_layers * ((1 + 3) + (1 + 6)) and faulted.retries == 1
+    np.testing.assert_array_equal(clean.outputs, faulted.outputs)
+
+
+def test_server_on_card_launches_rglru_per_layer_per_step(cuda):
+    """recurrentgemma-9b: the RG-LRU kernel once per rglru layer for the
+    prefill and for every decode step, flash once per local layer per
+    prefill (decode attention stays plain); a crash before decode step 3
+    adds a prefill and 3 steps."""
+    cfg = smoke_config(get_arch("recurrentgemma-9b"))
+    kinds = cfg.layer_kinds()
+    n_rg, n_local = kinds.count("rglru"), kinds.count("local")
+    assert (n_rg, n_local) == (6, 2)
+    scfg = ServeConfig(batch=2, prompt_len=80, max_new_tokens=6)
+    kg.launches = fa.launches = k6.launches = 0
+    clean = Server(cfg, scfg).run()
+    assert kg.launches == n_rg * (1 + 6) and fa.launches == n_local and k6.launches == 0
+    kg.launches = fa.launches = 0
+    faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
+    assert kg.launches == n_rg * ((1 + 3) + (1 + 6)) and fa.launches == 2 * n_local
+    assert faulted.retries == 1
     np.testing.assert_array_equal(clean.outputs, faulted.outputs)

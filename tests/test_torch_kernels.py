@@ -148,7 +148,7 @@ def _t(shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("q,k,v,match", [
-    (_t((1, 8, 2, 256)), _t((1, 8, 2, 256)), _t((1, 8, 2, 256)), "head dim 256"),
+    (_t((1, 8, 2, 48)), _t((1, 8, 2, 48)), _t((1, 8, 2, 48)), "head dim 48"),
     (_t((1, 8, 2, 64)), _t((1, 8, 2, 64), torch.bfloat16), _t((1, 8, 2, 64)), "dtype"),
     (_t((1, 8, 2, 64), torch.float16), _t((1, 8, 2, 64), torch.float16),
      _t((1, 8, 2, 64), torch.float16), "dtype"),

@@ -118,6 +118,76 @@ def test_unported_kinds_raise():
     _, tcfg = _pair("rsc-llm")
     x = torch.zeros((1, 4, tcfg.d_model))
     p = _t(_weights(tl.attention_defs(tcfg), np.random.default_rng(5)))
-    for kind in ("local", "chunked"):
-        with pytest.raises(NotImplementedError, match=kind):
-            tl.self_attention(p, x, tcfg, kind)
+    with pytest.raises(NotImplementedError, match="chunked"):
+        tl.self_attention(p, x, tcfg, "chunked")
+
+
+# -- local (sliding-window) attention: smoke recurrentgemma-9b, MQA, window 64 --
+def test_local_self_attention_matches():
+    jcfg, tcfg = _pair("recurrentgemma-9b")
+    assert jcfg.window == tcfg.window == 64 and tcfg.n_kv_heads == 1
+    rng = np.random.default_rng(6)
+    p = _weights(tl.attention_defs(tcfg), rng)
+    S = 100  # past the window, so the mask cuts
+    x = rng.standard_normal((2, S, tcfg.d_model)).astype(np.float32)
+    pos = np.arange(S)
+    got, (gk, gv) = tl.self_attention(_t(p), torch.from_numpy(x), tcfg, "local",
+                                      positions=torch.from_numpy(pos))
+    want, (wk, wv) = jax.jit(jl.self_attention, static_argnums=(2, 3))(
+        _j(p), jnp.asarray(x), jcfg, "local", positions=jnp.asarray(pos))
+    for a, b in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    glob, _ = tl.self_attention(_t(p), torch.from_numpy(x), tcfg, "global",
+                                positions=torch.from_numpy(pos))
+    assert not np.allclose(glob.numpy()[:, 64:], got.numpy()[:, 64:], atol=1e-3)
+    np.testing.assert_allclose(glob.numpy()[:, :64], got.numpy()[:, :64], atol=ATOL)
+
+
+@pytest.mark.parametrize("pos", [10, 63, 64, 80, 150])
+def test_local_decode_matches_on_the_ring(pos):
+    """A window-long ring cache: before it fills (slots past pos are empty),
+    at the first wrap, and wrapped more than once."""
+    jcfg, tcfg = _pair("recurrentgemma-9b")
+    rng = np.random.default_rng(7)
+    p = _weights(tl.attention_defs(tcfg), rng)
+    B, L = 2, tcfg.kv_cache_len("local", 10_000)
+    assert L == 64
+    x = rng.standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
+    kc = rng.standard_normal((B, L, 1, tcfg.d_head)).astype(np.float32)
+    vc = rng.standard_normal((B, L, 1, tcfg.d_head)).astype(np.float32)
+    got, gk, gv = tl.decode_self_attention(
+        _t(p), torch.from_numpy(x), tcfg, "local",
+        torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()), pos)
+    want, wk, wv = jax.jit(jl.decode_self_attention, static_argnums=(2, 3))(
+        _j(p), jnp.asarray(x), jcfg, "local", jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(pos, jnp.int32))
+    for a, b in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    assert not np.allclose(gk[:, pos % L].numpy(), kc[:, pos % L])
+    # before the ring fills, the slots past pos are empty: what they hold
+    # does not change the output
+    if pos < L - 1:
+        kc2 = kc.copy()
+        kc2[:, pos + 1:] += 5.0
+        other, _, _ = tl.decode_self_attention(
+            _t(p), torch.from_numpy(x), tcfg, "local",
+            torch.from_numpy(kc2), torch.from_numpy(vc.copy()), pos)
+        np.testing.assert_allclose(other.numpy(), got.numpy(), atol=ATOL)
+
+
+def test_flash_attention_d256_mqa_window_matches_jax_ref():
+    """The recurrentgemma-9b head shape (d_head 256, one kv head) with a
+    window, f32, on the CPU path of ops.flash_attention."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ops as tops
+
+    rng = np.random.default_rng(8)
+    B, S, H, D, window = 2, 96, 4, 256, 32
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, 1, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, 1, D)).astype(np.float32)
+    got = tops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=True, window=window)
+    want = jref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)

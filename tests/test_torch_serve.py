@@ -2,16 +2,20 @@
 same weights, and the port's Server on the CPU.
 
 A subprocess with REPRO_COMPUTE_DTYPE=float32 (read when repro is imported)
-materializes JAX params for smoke rsc-llm, qwen3-0.6b and rwkv6-7b, cast to
-bf16 as
-the JAX Server casts them, runs prefill + 6 greedy decode steps and the JAX
-Server, and saves weights (checkpoint encoding), logits and tokens to an
-npz.  The port loads the same weights and runs in f32 on the CPU.
+materializes JAX params for smoke rsc-llm, qwen3-0.6b, rwkv6-7b and
+recurrentgemma-9b, cast to bf16 as the JAX Server casts them, runs prefill +
+6 greedy decode steps and the JAX Server, and saves weights (checkpoint
+encoding), logits and tokens to an npz; for recurrentgemma-9b it also saves
+one decode step after prompts of 32, 64 and 80 tokens (its local ring at
+window 64).  The port loads the same weights and runs in f32 on the CPU.
 Tolerance 1e-4 on logits: two layers of f32 matmuls summed in different
 orders by two frameworks.  Greedy tokens must be equal.
 """
+import dataclasses
 import textwrap
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,7 +24,7 @@ from repro.checkpoint.manager import _flatten
 from repro.configs.base import get_arch as jget_arch
 from repro.configs.base import smoke_config as jsmoke
 from repro.models import transformer as jtransformer
-from repro_torch.configs.base import RGLRUSpec, get_arch, smoke_config
+from repro_torch.configs.base import MoESpec, get_arch, smoke_config
 from repro_torch.models import convert
 from repro_torch.models import params as pmod
 from repro_torch.models.steps import make_decode_step, make_prefill_step
@@ -29,7 +33,8 @@ from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from tests.conftest import run_subprocess_py
 
-ARCHS = ("rsc-llm", "qwen3-0.6b", "rwkv6-7b")
+ARCHS = ("rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b")
+RING_PROMPTS = (32, 64, 80)  # below, at and past the smoke window of 64
 N_DECODE = 6
 ATOL = 1e-4
 
@@ -64,6 +69,15 @@ JAX_SCRIPT = textwrap.dedent("""
         out[arch + "/server_outputs"] = srv.run().outputs
         for path, leaf in _flatten(srv.params).items():
             out[arch + "/server_params/" + path] = _encode(leaf)[0]
+        if arch == "recurrentgemma-9b":
+            prefill = jax.jit(make_prefill_step(cfg))
+            for S in %(ring)r:
+                toks = np.random.default_rng(9).integers(3, cfg.vocab_size, (2, S + 1),
+                                                         dtype=np.int32)
+                _, cache = prefill(params, {"tokens": jnp.asarray(toks[:, :S])})
+                logits, _ = decode(params, cache, jnp.asarray(toks[:, S:]))
+                out[f"ring/{S}/tokens"] = toks
+                out[f"ring/{S}/decode"] = np.asarray(logits, np.float32)
     np.savez(%(path)r, **out)
 """)
 
@@ -71,7 +85,8 @@ JAX_SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("jax_serve") / "ref.npz")
-    r = run_subprocess_py(JAX_SCRIPT % {"archs": ARCHS, "n": N_DECODE, "path": path},
+    r = run_subprocess_py(JAX_SCRIPT % {"archs": ARCHS, "n": N_DECODE, "path": path,
+                                        "ring": RING_PROMPTS},
                           env_extra={"REPRO_COMPUTE_DTYPE": "float32",
                                      "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr[-3000:]
@@ -190,11 +205,9 @@ def test_server_output_deterministic(cfg):
 
 @pytest.mark.parametrize("feature", [
     dict(attn_logit_softcap=30.0), dict(enc_dec=True), dict(n_patches=4),
-    dict(block_groups=((("local",), 2),), window=8),
-    # recurrentgemma-9b at smoke size: rglru + local attention, MQA
-    dict(n_layers=8, block_groups=((("rglru", "rglru", "local"), 2), (("rglru",), 2)),
-         window=64, n_kv_heads=1, tie_embeddings=True,
-         rglru=RGLRUSpec(lru_width=64, conv_width=4, n_heads=4)),
+    dict(block_groups=((("chunked",), 2),), window=8),
+    # mixtral-8x22b's MoE FFN at smoke size (8 experts top-2 -> 4, group 64)
+    dict(moe=MoESpec(n_experts=4, top_k=2, capacity_factor=1.25, group_size=64)),
 ])
 def test_unported_features_raise(cfg, feature):
     with pytest.raises(NotImplementedError):
@@ -210,17 +223,71 @@ def test_materialize_keeps_the_reference_init_rule():
     a, b = pmod.materialize(defs, seed=5), pmod.materialize(defs, seed=5)
     assert torch.equal(a["w"], b["w"]) and torch.equal(a["g"], torch.ones(8))
     assert abs(a["w"].std().item() * (4 * 64) ** 0.5 - 1.0) < 0.02
-    for arch in ("qwen3-0.6b", "rwkv6-7b"):
+    flats = {}
+    for arch in ("qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b"):
         jdefs = jtransformer.model_defs(jsmoke(jget_arch(arch)))
         tdefs = model_defs(smoke_config(get_arch(arch)))
         jflat = _flatten(jdefs)  # ParamDefs are leaves of the JAX tree
         tflat = dict(pmod.flatten(tdefs))
         assert list(tflat) == list(jflat)
         assert all(tflat[k].shape == jflat[k].shape and tflat[k].init == jflat[k].init
-                   for k in tflat)
+                   and tflat[k].init_scale == jflat[k].init_scale for k in tflat)
+        flats[arch] = jflat, tflat
+    jflat, tflat = flats["rwkv6-7b"]
     custom = [k for k in tflat if tflat[k].init == "custom"]
     assert custom == ["groups/0/p0/w0"]
     want = jflat[custom[0]].init_fn(None, jflat[custom[0]].shape, jflat[custom[0]].dtype)
     got = pmod.materialize({"w0": tflat[custom[0]]}, seed=5)["w0"]
     # jnp.linspace and torch.linspace round differently in the last bit
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    # rglru's lam: random, so the rule is checked, not the bits: the decay at
+    # a gate of 1, exp(-8 softplus(lam)), is U(0.9, 0.999) in both packages
+    jflat, tflat = flats["recurrentgemma-9b"]
+    custom = sorted(k for k in tflat if tflat[k].init == "custom")
+    assert custom == ["groups/0/p0/lam", "groups/0/p1/lam", "groups/1/p0/lam"]
+    for k in custom:
+        want = np.asarray(jflat[k].init_fn(jax.random.PRNGKey(5), (4096,), jnp.float32))
+        got = pmod.materialize({"lam": dataclasses.replace(tflat[k], shape=(4096,))},
+                               seed=5)["lam"].numpy()
+        for lam in (want, got):
+            a = np.exp(-8.0 * np.logaddexp(lam, 0.0))
+            assert 0.9 - 1e-5 <= a.min() and a.max() <= 0.999 + 1e-5
+            assert abs(a.mean() - 0.9495) < 0.005
+
+
+def test_convert_loads_recurrentgemma_strictly(jax_run):
+    """The JAX smoke params carry every rglru key (the ffn subtree too), and
+    load_into takes them strictly: exactly the port's paths and shapes."""
+    flat = _sub(jax_run, "recurrentgemma-9b/params/")
+    model = Transformer(smoke_config(get_arch("recurrentgemma-9b")), device="cpu",
+                        dtype=torch.float32)
+    assert set(flat) == set(model.flat)
+    assert {"groups/0/p0/lam", "groups/0/p0/ffn/w_gate", "groups/0/p2/attn/wq",
+            "groups/1/p0/conv_w"} <= set(flat)
+    convert.load_into(model, flat)
+    for path, t in model.flat.items():
+        assert tuple(t.shape) == flat[path].shape
+    with pytest.raises(RuntimeError, match="Unexpected"):
+        convert.load_into(model, dict(flat, **{"groups/0/p0/extra": flat["ln_f"]}))
+
+
+@pytest.mark.parametrize("S", RING_PROMPTS)
+def test_port_reproduces_local_ring_fault(jax_run, S):
+    """The prefill keeps a local layer's last L = min(window, S) keys in
+    linear order, while decode takes position p to sit at slot p % L: true
+    only when S is a multiple of L and S >= window.  At window 64 a prompt
+    of 64 decodes as a full forward over 65 tokens does; prompts of 80 and
+    32 do not, and the port agrees with the JAX decode in every case."""
+    arch = "recurrentgemma-9b"
+    model = _port_model(jax_run, arch)
+    toks = torch.from_numpy(jax_run[f"ring/{S}/tokens"]).long()
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    _, cache = prefill({"tokens": toks[:, :S]})
+    got, _ = decode(cache, toks[:, S:])
+    np.testing.assert_allclose(got.numpy(), jax_run[f"ring/{S}/decode"], atol=ATOL)
+    full_h, _ = model(toks)
+    full = model.unembed(full_h[:, -1:])
+    if S == 64:
+        np.testing.assert_allclose(got.numpy(), full.numpy(), atol=ATOL)
+    else:
+        assert (got - full).abs().max().item() > 1e-2
