@@ -4,6 +4,12 @@
 
 On a CPU tensor it returns the plain version (``ref.attention_ref``).  On a
 CUDA tensor it launches the kernel or raises; nothing falls back.
+
+The kernel's design follows the dtype (``DESIGNS``): bf16 runs on the
+tensor cores (wgmma, tiles loaded by TMA), f32 keeps a CUDA-core kernel so
+that its products stay true f32 (tensor cores take f32 only as TF32).  TMA
+needs q / k / v to start on a 16-byte boundary with every stride a multiple
+of 16 bytes (``aligned_for_tma``); a bf16 CUDA view that is not raises.
 """
 from __future__ import annotations
 
@@ -16,8 +22,55 @@ from repro_torch.kernels import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
+
+# Tile classes of a (q tile, kv tile) pair; csrc/flash_attention.cu's
+# tile_class mirrors this function line for line.
+SKIP, FULL, PARTIAL = 0, 1, 2
+_BIG = 1 << 30
 
 launches = 0  # kernel launches since the last reset; the CPU path does not count
+
+
+def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, Sk: int,
+               *, causal: bool, window: int, chunk: int) -> int:
+    """SKIP if no (q, k) pair of the tile attends, FULL if every pair does
+    and every key is real (the kernel needs no mask there), else PARTIAL.
+    q rows past Sq are ignored (their output is not written); keys past Sk
+    never attend."""
+    qa, qb = q_start, min(q_start + block_q, Sq) - 1
+    ka, kb = k_start, min(k_start + block_k, Sk) - 1
+    if qa > qb or ka > kb:
+        return SKIP
+    d_lo = 0 if causal else -_BIG  # q - k must lie in [d_lo, d_hi]
+    d_hi = window - 1 if window > 0 else _BIG
+    # some pair attends: within one chunk that both ranges touch, the
+    # differences q - k cover [a - hi, b - lo] and must meet [d_lo, d_hi]
+    c_first = max(qa, ka) // chunk if chunk > 0 else 0
+    c_last = min(qb, kb) // chunk if chunk > 0 else 0
+    any_ = False
+    c = c_first
+    while c <= c_last and not any_:
+        a = max(qa, c * chunk) if chunk > 0 else qa
+        b = min(qb, c * chunk + chunk - 1) if chunk > 0 else qb
+        lo = max(ka, c * chunk) if chunk > 0 else ka
+        hi = min(kb, c * chunk + chunk - 1) if chunk > 0 else kb
+        any_ = max(a - hi, d_lo) <= min(b - lo, d_hi)
+        c += 1
+    if not any_:
+        return SKIP
+    all_ = (k_start + block_k <= Sk and qa - kb >= d_lo and qb - ka <= d_hi
+            and (chunk <= 0 or (qa // chunk == qb // chunk and ka // chunk == kb // chunk
+                                and qa // chunk == ka // chunk)))
+    return FULL if all_ else PARTIAL
+
+
+def aligned_for_tma(t: torch.Tensor) -> bool:
+    """True if ``t`` starts on a 16-byte boundary and its strides other than
+    the last are multiples of 16 bytes, as a TMA descriptor needs."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in t.stride()[:-1]))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,6 +95,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v must be contiguous in the head dim")
     if window < 0 or chunk < 0 or softcap < 0:
         raise ValueError("window, chunk and softcap must be >= 0")
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not aligned_for_tma(t):
+                raise ValueError(
+                    f"{name} must start on a 16-byte boundary with strides that are multiples "
+                    f"of 16 bytes for the tensor-core kernel (data_ptr % 16 = "
+                    f"{t.data_ptr() % 16}, strides {tuple(t.stride())} elements of "
+                    f"{t.element_size()} bytes)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

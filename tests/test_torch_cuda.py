@@ -44,6 +44,18 @@ CASES = [
     (1, 300, 2, 1, 256, True, 128, 0, 0.0),   # d_head 256, ragged S
 ]
 
+# bf16 only: the tensor-core kernel's tile classes at the main path's shapes
+# and at mask edges that do not fall on a tile boundary
+BF16_CASES = [
+    (1, 2048, 32, 8, 128, True, 0, 0, 0.0),     # rsc-llm prefill, B 1
+    (1, 2048, 16, 1, 256, True, 2048, 0, 0.0),  # recurrentgemma-9b prefill, B 1
+    (1, 1024, 4, 1, 256, True, 300, 0, 0.0),    # window not a multiple of the tile
+    (1, 512, 4, 2, 128, True, 0, 100, 0.0),     # chunk of 100
+    (1, 512, 4, 2, 128, True, 0, 0, 30.0),      # softcap at d_head 128
+    (1, 333, 4, 1, 256, True, 0, 0, 0.0),       # ragged S at d_head 256
+    (1, 200, 2, 2, 64, False, 0, 100, 0.0),     # chunk without causal
+]
+
 
 @pytest.fixture
 def cuda():
@@ -76,15 +88,37 @@ def test_kernel_matches_plain(cuda, case, dtype):
                                atol=TOL[dtype])
 
 
-def test_kernel_reads_strided_inputs(cuda):
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_tensor_core_kernel_matches_plain(cuda, case):
+    test_kernel_matches_plain(cuda, case, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_strided_inputs(cuda, dtype):
     """q/k/v are read through their strides: a (B, S, H, D) view of a
-    larger buffer (last dim contiguous) gives the same result as a copy."""
-    big = torch.randn((2, 128, 12, 64), device=cuda)
+    larger buffer (last dim contiguous; 16-byte aligned, as the bf16
+    kernel's TMA needs) gives the same result as a copy."""
+    big = torch.randn((2, 128, 12, 64), device=cuda).to(dtype)
     q, k, v = big[:, :, :4], big[:, :, 4:6], big[:, :, 6:8]
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_wrapper_rejects_misaligned_bf16_view(cuda):
+    """A bf16 view whose start or strides are not 16-byte multiples raises;
+    the same view in f32 (CUDA-core kernel) is taken."""
+    z = torch.zeros((1, 8, 2, 65), device=cuda, dtype=torch.bfloat16)[..., 1:]
+    ok = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(z, ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(ok, ok, z)
+    zf = torch.zeros((1, 8, 2, 65), device=cuda)[..., 1:]
+    out = fa.flash_attention(zf, zf, zf)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def test_wrapper_rejects_on_card(cuda):
