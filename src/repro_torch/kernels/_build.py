@@ -104,8 +104,9 @@ def load() -> ctypes.CDLL:
         [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 3
         + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = i32
-    lib.wkv6_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
-    lib.wkv6_fwd.restype = i32
+    for fn in (lib.wkv6_fwd, lib.wkv6_chunked_fwd):
+        fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
+        fn.restype = i32
     lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 4 + [ptr]
     lib.rglru_fwd.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

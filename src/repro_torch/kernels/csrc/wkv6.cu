@@ -1,9 +1,16 @@
-// RWKV-6 (Finch) WKV recurrence for Hopper (sm_90a), plain C interface for
-// ctypes.
+// RWKV-6 (Finch) WKV recurrence for Hopper (sm_90a), sequential on CUDA
+// cores, plain C interface for ctypes.
 //
 // Replaces repro/kernels/rwkv6_scan.py::_kernel (the Pallas TPU kernel
-// behind repro.kernels.ops.wkv6). It computes what ops.wkv6 computes, per
-// (b, h), sequentially over t, with a D x D f32 state S[key i][value j]:
+// behind repro.kernels.ops.wkv6) for f32 inputs. Routing (the wrapper,
+// kernels/wkv6.py::design): f32 takes this kernel, whose products stay true
+// f32 for the 5e-5 checks; bf16 takes the chunked tensor-core kernel in
+// wkv6_chunked.cu, at every S (prefill and the decode step). This entry
+// still takes bf16 too, so the two kernels can be compared on the card
+// (chip_smoke.py times both at rwkv6-7b's shapes).
+//
+// It computes what ops.wkv6 computes, per (b, h), sequentially over t, with
+// a D x D f32 state S[key i][value j]:
 //
 //   out_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j] <- w_t[i] * S[i][j] + k_t[i] * v_t[j]
@@ -53,8 +60,8 @@
 //
 // What the simple design leaves on the table: the arithmetic is on CUDA
 // cores and each step's shared-memory loads are served a quarter-warp at a
-// time. A chunked formulation on tensor cores is the way toward the bytes
-// bound.
+// time; at rwkv6-7b prefill it is ~13x its bytes bound, which is why bf16
+// went to the chunked design (PERF.md has both kernels' times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

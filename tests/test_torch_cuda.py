@@ -187,6 +187,102 @@ def test_wkv6_reads_strided_inputs(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _decays(w, decays, seed=0):
+    """w set to exact decays: all 0, all 1, all 1e-30 (products underflow),
+    or runs of 7 steps of ordinary w, 0, 1, and an element-wise mix."""
+    if decays in ("zero", "one", "tiny"):
+        return torch.full_like(w, {"zero": 0.0, "one": 1.0, "tiny": 1e-30}[decays])
+    rng = np.random.default_rng(seed)
+    pick = torch.from_numpy(rng.integers(0, 4, tuple(w.shape))).to(w.device)
+    wf = w.float()
+    mix = torch.where(pick == 0, 0.0, torch.where(pick == 1, 1.0, torch.where(
+        pick == 2, 1e-30, wf)))
+    run = (torch.arange(w.shape[1], device=w.device) // 7 % 4).view(1, -1, 1, 1)
+    return torch.where(run == 1, 0.0, torch.where(run == 2, 1.0, torch.where(
+        run == 3, mix, wf))).to(w.dtype)
+
+
+def _check_wkv6(got, want, dtype, rel=0.0):
+    """Out within tol + rel |want| (above 8 one bf16 ulp of the output is
+    more than 5e-2, and the two sides sum in different orders), state
+    within tol."""
+    out, s = got
+    d = (out.float() - want[0].float()).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((d <= WKV_TOL[dtype] + rel * want[0].float().abs()).all()), d.max().item()
+    assert (s - want[1]).abs().max().item() <= WKV_TOL[dtype]
+
+
+@pytest.mark.parametrize("kernel", [k6.CHUNKED, k6.SEQUENTIAL])
+@pytest.mark.parametrize("decays", ["zero", "one", "tiny", "runs"])
+@pytest.mark.parametrize("shape,state", [((2, 77, 4, 64), True), ((1, 333, 8, 64), False),
+                                         ((3, 5, 2, 16), True), ((2, 40, 4, 32), True)])
+def test_wkv6_bf16_extreme_decays_match_plain(cuda, shape, state, decays, kernel):
+    """w = 0, 1 and 1e-30 and runs of them at S that are no multiple of the
+    chunked kernel's 16 steps: no NaN, and the plain version's result."""
+    args = _wkv_inputs(*shape, torch.bfloat16, cuda, state=state)
+    args[3] = _decays(args[3], decays)
+    want = ref.wkv6_ref(*args)
+    got = k6.wkv6(*args, kernel=kernel)
+    torch.cuda.synchronize()
+    _check_wkv6(got, want, torch.bfloat16, rel=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 16, 100])
+def test_wkv6_routes_by_dtype_on_card(cuda, dtype, S):
+    """bf16 launches the chunked kernel and f32 the sequential one, at the
+    decode step and in prefill alike; each launch is counted once."""
+    args = _wkv_inputs(2, S, 4, 64, dtype, cuda, state=True)
+    want = ref.wkv6_ref(*args)
+    before = dict(k6.kernel_launches)
+    got = k6.wkv6(*args)
+    torch.cuda.synchronize()
+    taken = k6.design(dtype)
+    assert k6.kernel_launches[taken] == before[taken] + 1
+    assert sum(k6.kernel_launches.values()) == sum(before.values()) + 1
+    _check_wkv6(got, want, dtype)
+
+
+@pytest.mark.parametrize("kernel", [k6.CHUNKED, k6.SEQUENTIAL])
+@pytest.mark.parametrize("shape,state", [((4, 1, 64, 64), True), ((1, 2048, 4, 64), False)])
+def test_wkv6_both_kernels_match_plain_at_the_main_path_shapes(cuda, shape, state, kernel):
+    """The decode step (B 4, H 64) and a prefill of 2048 steps (4 heads),
+    bf16, through either kernel."""
+    args = _wkv_inputs(*shape, torch.bfloat16, cuda, state=state)
+    want = ref.wkv6_ref(*args)
+    got = k6.wkv6(*args, kernel=kernel)
+    torch.cuda.synchronize()
+    _check_wkv6(got, want, torch.bfloat16, rel=2.0 ** -7)
+
+
+def test_wkv6_chunked_reads_aligned_strided_bf16_views(cuda):
+    """bf16 r, k, v, w as views of one buffer (16-byte strides) give the same
+    result as copies."""
+    big = torch.randn((2, 40, 16, 32), device=cuda) * 0.5
+    big16 = big.bfloat16()
+    r, k, v = big16[:, :, :4], big16[:, :, 4:8], big16[:, :, 8:12]
+    w = (torch.sigmoid(big[:, :, 12:16]) * 0.5 + 0.45).bfloat16()
+    u = torch.randn((4, 32), device=cuda) * 0.3
+    got = k6.wkv6(r, k, v, w, u)
+    want = k6.wkv6(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(), u)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wkv6_chunked_rejects_misaligned_bf16_view_and_f32(cuda):
+    big = torch.zeros((1, 8, 2, 20), device=cuda, dtype=torch.bfloat16)
+    r = big[..., 2:18]  # starts 4 bytes in
+    u = torch.zeros((2, 16), device=cuda)
+    before = k6.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k6.wkv6(r, r, r, r, u)
+    z = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        k6.wkv6(z, z, z, z, u, kernel=k6.CHUNKED)
+    assert k6.launches == before
+
+
 def _rglru_inputs(B, S, W, x_dtype, la_dtype, device, state=False, seed=0):
     """The reference test's distribution: x ~ N(0, 1), log_a =
     -softplus(N(0, 1)), h0 ~ N(0, 1) (f32)."""
