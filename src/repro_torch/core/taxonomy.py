@@ -1,9 +1,10 @@
-"""Failure taxonomy (paper Table I), copied from ``repro.core.taxonomy``
-for the fault injector."""
+"""Failure taxonomy (paper Table I) and differential diagnosis, copied from
+``repro.core.taxonomy`` for the fault injector and the trainer."""
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from typing import Optional
 
 
 class Domain(enum.Flag):
@@ -72,3 +73,41 @@ TAXONOMY: dict[str, Symptom] = {s.name: s for s in [
             Transience.TRANSIENT, "node agent / scheduler daemon failure",
             "low"),
 ]}
+
+# Hardware-attributable symptom set (Figures 3-4 "(HW)" categories).
+HW_SYMPTOMS = tuple(
+    name for name, s in TAXONOMY.items()
+    if s.domains & Domain.HARDWARE and name not in ("nccl_timeout", "system_services")
+)
+
+
+def diagnose(symptoms: list[str]) -> Domain:
+    """Differential diagnosis: intersect candidate domains over observed
+    symptoms (Observation 3: narrow the hypothesis space by ruling out)."""
+    cand = Domain.ALL
+    for s in symptoms:
+        sym = TAXONOMY.get(s)
+        if sym is None:
+            continue
+        narrowed = cand & sym.domains
+        if narrowed:
+            cand = narrowed
+    return cand
+
+
+def most_likely_cause(symptoms: list[str]) -> Optional[str]:
+    """Pick the highest-priority symptom (high severity first, then
+    hardware-domain) as the attribution, mirroring the paper's heuristic
+    'most likely cause ... indicating whether a node should be isolated'."""
+    best = None
+    best_key = (-1, -1)
+    for s in symptoms:
+        sym = TAXONOMY.get(s)
+        if sym is None:
+            continue
+        key = (1 if sym.severity == "high" else 0,
+               1 if sym.domains & Domain.HARDWARE else 0)
+        if key > best_key:
+            best_key = key
+            best = s
+    return best

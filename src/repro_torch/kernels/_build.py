@@ -47,8 +47,9 @@ def _sources() -> list[pathlib.Path]:
 
 
 def _digest(sources: list[pathlib.Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -101,9 +102,12 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     lib.flash_attention_fwd.argtypes = (
-        [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 3
+        [ptr] * 5 + [i32] * 7 + [i64] * 12 + [i32] * 3
         + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_bwd.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [i32] * 3 + [ctypes.c_float, ctypes.c_float, ptr])
+    lib.flash_attention_bwd.restype = i32
     for fn in (lib.wkv6_fwd, lib.wkv6_chunked_fwd):
         fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
         fn.restype = i32

@@ -38,9 +38,12 @@
 //       / 32 bytes, the width of their rows.
 //   Left on the table: more q rows a kv tile (a third consumer warpgroup at
 //   D <= 128: K and V are read from L2 once per 128 q rows of each query
-//   head), a dynamic tile scheduler, output through shared memory and a TMA
-//   store, and the row log-sum-exp output that a backward pass needs. Its
-//   time against the bound is in PERF.md.
+//   head), a dynamic tile scheduler, and output through shared memory and a
+//   TMA store. Its time against the bound is in PERF.md.
+//
+// Both designs write the row log-sum-exp m + log(max(l, 1e-20)) to an
+// optional (B, H, Sq) f32 output, the input of the backward pass
+// (flash_attention_bwd.cu); with a null pointer nothing more is stored.
 //
 // f32 -- CUDA-core FMA (namespace cc). Tensor cores take f32 only as TF32,
 //   about three decimal digits, and the f32 checks (1e-5 against the plain
@@ -52,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -61,6 +66,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) row log-sum-exp for the backward, or null
   int B, Sq, Sk, H, KV;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -69,47 +75,6 @@ struct Params {
   int causal, window, chunk;
   float softcap, scale;
 };
-
-// Class of a (q tile, kv tile) pair; mirrors kernels/flash_attention.py::
-// tile_class line for line. q rows past Sq are ignored (their output is not
-// written) and keys past Sk never attend. SKIP: no pair attends; FULL: every
-// pair attends and every key is real, so no mask is needed; PARTIAL: some do.
-constexpr int SKIP = 0, FULL = 1, PARTIAL = 2;
-constexpr int BIG = 1 << 30;
-
-__host__ __device__ inline int tile_class(int q_start, int block_q, int k_start, int block_k,
-                                          int Sq, int Sk, int causal, int window, int chunk) {
-  const int qa = q_start, qb = min(q_start + block_q, Sq) - 1;
-  const int ka = k_start, kb = min(k_start + block_k, Sk) - 1;
-  if (qa > qb || ka > kb) return SKIP;
-  const int d_lo = causal ? 0 : -BIG;  // q - k must lie in [d_lo, d_hi]
-  const int d_hi = window > 0 ? window - 1 : BIG;
-  // some pair attends: within one chunk that both ranges touch, the
-  // differences q - k cover [a - hi, b - lo] and must meet [d_lo, d_hi]
-  const int c_first = chunk > 0 ? max(qa, ka) / chunk : 0;
-  const int c_last = chunk > 0 ? min(qb, kb) / chunk : 0;
-  bool any = false;
-  for (int c = c_first; c <= c_last && !any; ++c) {
-    const int a = chunk > 0 ? max(qa, c * chunk) : qa;
-    const int b = chunk > 0 ? min(qb, c * chunk + chunk - 1) : qb;
-    const int lo = chunk > 0 ? max(ka, c * chunk) : ka;
-    const int hi = chunk > 0 ? min(kb, c * chunk + chunk - 1) : kb;
-    any = max(a - hi, d_lo) <= min(b - lo, d_hi);
-  }
-  if (!any) return SKIP;
-  const bool all = k_start + block_k <= Sk && qa - kb >= d_lo && qb - ka <= d_hi &&
-                   (chunk <= 0 || (qa / chunk == qb / chunk && ka / chunk == kb / chunk &&
-                                   qa / chunk == ka / chunk));
-  return all ? FULL : PARTIAL;
-}
-
-__device__ __forceinline__ bool attends(int qi, int kj, const Params& p) {
-  bool keep = kj < p.Sk;
-  if (p.causal) keep = keep && (qi >= kj);
-  if (p.window > 0) keep = keep && (qi - kj < p.window);
-  if (p.chunk > 0) keep = keep && (qi / p.chunk == kj / p.chunk);
-  return keep;
-}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA-core design. One block per (b, h, 64-row q tile), a loop over
@@ -270,6 +235,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     const float lsafe = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) o[qi * p.o_ss + tx + 16 * c] = acc[i][c] / lsafe;
+    // as the reference: m + log(max(l, 1e-20)), so -1e30 for a row with no key
+    if (p.lse != nullptr && tx == 0) p.lse[((int64_t)b * p.H + h) * p.Sq + qi] = m[i] + logf(lsafe);
   }
 }
 
@@ -297,6 +264,7 @@ using bf16 = __nv_bfloat16;
 constexpr int BQ = 128;  // two consumer warpgroups of 64 rows
 constexpr int NT = 384;  // 2 consumer warpgroups + 1 producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -815,6 +783,13 @@ __global__ void __launch_bounds__(NT, 1)
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
       const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+      if (p.lse != nullptr && t == 0) {
+        // m is in the log2 domain; a row with no key keeps m = -1e30 and,
+        // as in the reference, its log-sum-exp is -1e30
+        float* lse = p.lse + ((int64_t)b * p.H + h) * p.Sq;
+        if (qi0 < p.Sq) lse[qi0] = m0 <= NEG_INF ? NEG_INF : m0 * LN2 + logf(fmaxf(l0, 1e-20f));
+        if (qi1 < p.Sq) lse[qi1] = m1 <= NEG_INF ? NEG_INF : m1 * LN2 + logf(fmaxf(l1, 1e-20f));
+      }
       bf16* out = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -900,8 +875,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// lse: (B, H, Sq) f32, written when not null (the backward's input).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int H, int KV, int D,
+                                   float* lse, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
                                    int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -909,7 +885,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int causal, int window, int chunk, float softcap, float scale,
                                    void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, Sq, Sk, H, KV,
+  const Params p{q, k, v, o, lse, B, Sq, Sk, H, KV,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  causal, window, chunk, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,15 +1,21 @@
-"""Wrapper around the Hopper flash-attention kernel
+"""Wrappers around the Hopper flash-attention kernels: the forward
 (``csrc/flash_attention.cu``), the port of the Pallas kernel in
-``repro/kernels/flash_attention.py``.
+``repro/kernels/flash_attention.py``, and the backward
+(``csrc/flash_attention_bwd.cu``), the port of ``repro.kernels.ops._flash``'s
+VJP.  ``FlashAttention`` joins them as a ``torch.autograd.Function``: its
+forward also writes the row log-sum-exp, which its backward reads.
 
-On a CPU tensor it returns the plain version (``ref.attention_ref``).  On a
-CUDA tensor it launches the kernel or raises; nothing falls back.
+On CPU tensors each wrapper returns its plain version (``ref.attention_ref``,
+``ref.attention_lse_ref``, ``ref.flash_bwd_ref``).  On CUDA tensors it
+launches the kernel or raises; nothing falls back.
 
-The kernel's design follows the dtype (``DESIGNS``): bf16 runs on the
+The forward's design follows the dtype (``DESIGNS``): bf16 runs on the
 tensor cores (wgmma, tiles loaded by TMA), f32 keeps a CUDA-core kernel so
 that its products stay true f32 (tensor cores take f32 only as TF32).  TMA
 needs q / k / v to start on a 16-byte boundary with every stride a multiple
-of 16 bytes (``aligned_for_tma``); a bf16 CUDA view that is not raises.
+of 16 bytes (``aligned_for_tma``); a bf16 CUDA view that is not raises.  The
+backward's design follows the dtype too (``BWD_DESIGNS``): bf16 on the
+tensor cores (mma.sync, tensors on 16-byte boundaries), f32 on CUDA cores.
 """
 from __future__ import annotations
 
@@ -29,7 +35,13 @@ DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
 SKIP, FULL, PARTIAL = 0, 1, 2
 _BIG = 1 << 30
 
-launches = 0  # kernel launches since the last reset; the CPU path does not count
+# kernel launches since the last reset; the CPU path does not count
+launches = 0      # forward without the LSE (serving)
+lse_launches = 0  # forward that also writes the LSE (training)
+bwd_launches = 0  # backward
+BWD_DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "cuda-core f32"}
+# the backward's tiles: D 256 does not fit in a block's shared memory
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, Sk: int,
@@ -105,6 +117,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     f"{t.element_size()} bytes)")
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+             window: int, chunk: int, softcap: float, with_lse: bool):
+    """Launch the forward kernel on CUDA tensors: (o, lse (B, H, Sq) f32 or
+    None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if o.numel() == 0 or Sk == 0:
+        if lse is not None:
+            lse.fill_(ref.NEG_INF)
+        return o.zero_(), lse
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            o.stride(0), o.stride(1), o.stride(2),
+            int(causal), int(window), int(chunk), float(softcap),
+            1.0 / math.sqrt(D), stream)
+    _build.check(lib, err, "flash_attention_fwd launch")
+    return o, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -115,25 +159,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk, softcap=softcap)
+    o, _ = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
+                    softcap=softcap, with_lse=False)
+    launches += 1
+    return o
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, chunk: int = 0,
+                        softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s output and the row log-sum-exp (B, H, Sq) f32,
+    head h = kv * G + g, that ``flash_attention_bwd`` reads."""
+    global lse_launches
+    _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
+    if q.device.type == "cpu":
+        return ref.attention_lse_ref(q, k, v, causal=causal, window=window,
+                                     chunk=chunk, softcap=softcap)
+    o, lse = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
+                      softcap=softcap, with_lse=True)
+    lse_launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, chunk: int = 0, softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
+    from the forward's output ``o`` and row log-sum-exp ``lse``; each in its
+    input's dtype."""
+    global bwd_launches
+    _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
+    B, Sq, H, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {H}, {Sq}) float32, got {tuple(lse.shape)} {lse.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("o, lse and do must lie on q's device")
+    if q.device.type == "cpu":
+        return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
+                                 chunk=chunk, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, Sq, H, D = q.shape
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward kernel takes head dims {BWD_HEAD_DIMS}, not {D}: its f32 "
+            "tiles would not fit in a block's shared memory")
     Sk, KV = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    if o.numel() == 0 or Sk == 0:
-        return o.zero_()
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for the tensor-core "
+                                 f"backward (data_ptr % 16 = {t.data_ptr() % 16})")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
-            int(causal), int(window), int(chunk), float(softcap),
-            1.0 / math.sqrt(D), stream)
-    _build.check(lib, err, "flash_attention_fwd launch")
-    launches += 1
-    return o
+            int(causal), int(window), int(chunk), float(softcap), 1.0 / math.sqrt(D), stream)
+    _build.check(lib, err, "flash_attention_bwd launch")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel with the LSE, and
+    the backward kernel (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int, softcap: float):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, chunk=chunk,
+                                     softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk, softcap=softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None

@@ -1,7 +1,10 @@
 """Compute ops used by the model, following ``repro.kernels.ops``.
 
 ``flash_attention`` with Sq == Sk and q_offset == 0 always goes to the
-kernel wrapper (which takes the plain version only for CPU tensors).  Other
+kernel wrappers (which take the plain versions only for CPU tensors): when
+grad is enabled and q, k or v requires grad, through ``FlashAttention``
+(forward with the LSE, backward kernel); otherwise (serving, under
+``inference_mode``) through the forward alone, which writes no LSE.  Other
 shapes run the plain version on the CPU and are not yet ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
 ``wkv6`` and ``rglru`` always go to their kernel wrappers, with or without
@@ -32,6 +35,8 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     if q.shape[1] == k.shape[1] and q_offset == 0:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return fa.FlashAttention.apply(q, k, v, causal, window, chunk, softcap)
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   chunk=chunk, softcap=softcap)
     if q.device.type != "cpu":

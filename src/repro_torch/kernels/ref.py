@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention,
+"""Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention
+(with the row log-sum-exp and the backward of ``repro.kernels.ops._flash``),
 decode attention, the RWKV-6 WKV recurrence and the RG-LRU recurrence.
 
 They are the CPU path of every kernel wrapper and the yardstick the CUDA
@@ -29,6 +30,22 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return m
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int, chunk: int,
+            softcap: float, q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 scores (B, KV, G, Sq, Sk), NEG_INF where the mask drops a pair,
+    and the mask (Sq, Sk)."""
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    qf = q.float().reshape(B, Sq, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(D)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    m = _mask(q_pos, k_pos, causal=causal, window=window, chunk=chunk)
+    return torch.where(m[None, None, None], s, torch.full_like(s, NEG_INF)), m
+
+
 def attention_ref(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -41,21 +58,81 @@ def attention_ref(
     q_offset: int = 0,
 ) -> torch.Tensor:
     B, Sq, H, D = q.shape
-    _, Sk, KV, _ = k.shape
-    G = H // KV
-    qf = q.float().reshape(B, Sq, KV, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(D)
-    if softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
-    k_pos = torch.arange(Sk, device=q.device)
-    m = _mask(q_pos, k_pos, causal=causal, window=window, chunk=chunk)
-    s = torch.where(m[None, None, None], s, torch.full_like(s, NEG_INF))
+    s, m = _scores(q, k, causal=causal, window=window, chunk=chunk, softcap=softcap,
+                   q_offset=q_offset)
     p = torch.softmax(s, dim=-1)
     # rows with no valid key -> zero out
     p = torch.where(m.any(-1)[None, None, None, :, None], p, torch.zeros_like(p))
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_ref``'s output and the row log-sum-exp (B, H, Sq) in f32,
+    head h = kv * G + g, as ``ops._flash_fwd_impl`` forms it:
+    m + log(max(l, 1e-20)), so -1e30 for a row with no valid key."""
+    B, Sq, H, _ = q.shape
+    s, mask = _scores(q, k, causal=causal, window=window, chunk=chunk, softcap=softcap)
+    m = s.amax(-1)
+    l = torch.where(mask[None, None, None], torch.exp(s - m[..., None]), 0.0).sum(-1)
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    o = attention_ref(q, k, v, causal=causal, window=window, chunk=chunk, softcap=softcap)
+    return o, lse.reshape(B, H, Sq)
+
+
+def flash_bwd_ref(
+    q: torch.Tensor,    # (B, Sq, H, D)
+    k: torch.Tensor,    # (B, Sk, KV, D)
+    v: torch.Tensor,
+    o: torch.Tensor,    # (B, Sq, H, D)
+    lse: torch.Tensor,  # (B, H, Sq) f32
+    do: torch.Tensor,   # (B, Sq, H, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of ``ops._flash_bwd_impl`` unblocked, in f32: P from
+    (q, k, lse) under the mask, delta = rowsum(dO * O), dV = P^T dO,
+    dS = P (dO V^T - delta) [(1 - tanh^2)] * scale, dQ = dS K, dK = dS^T Q,
+    dK and dV summed over each kv head's G query heads.  Returns (dq, dk,
+    dv) in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if softcap > 0:
+        sc = torch.tanh(s / softcap)
+        s = sc * softcap
+    q_pos = torch.arange(Sq, device=q.device)
+    m = _mask(q_pos, torch.arange(Sk, device=q.device), causal=causal, window=window,
+              chunk=chunk)[None, None, None]
+    lse_b = lse.float().reshape(B, KV, G, Sq)
+    p = torch.where(m, torch.exp(s - lse_b[..., None]), 0.0)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.float().reshape(B, Sq, KV, G, D))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(sc))
+    ds = ds * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(

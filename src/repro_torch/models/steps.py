@@ -1,11 +1,91 @@
-"""Prefill and decode step functions (after ``repro.models.steps``)."""
+"""Train, eval, prefill and decode step functions (after
+``repro.models.steps``).
+
+The train step is functional, as the reference's: (params, opt_state,
+batch) -> (params, opt_state, metrics), params a flat dict of master
+weights keyed by flatten path.
+"""
 from __future__ import annotations
 
-from typing import Callable
+import os
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim import adamw
+from repro_torch.parallel import compression
+
+
+def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *, n_microbatches: int = 1,
+                   dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict, dict]:
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``, computing in
+    ``dtype``; the gradients are keyed as ``params``.
+
+    ``n_microbatches > 1`` accumulates the gradients in f32 over sequential
+    slices of the batch and divides by n; the loss is the mean of the
+    slices' losses.
+    """
+
+    def one(batch: dict):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss, metrics = transformer.loss_fn(leaves, cfg, batch, dtype=dtype)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, dict(zip(leaves, grads))
+
+    if n_microbatches <= 1:
+        return one(batch)
+    n = n_microbatches
+    if any(x.shape[0] % n for x in batch.values()):
+        raise ValueError(f"a batch of {len(batch['tokens'])} does not split into "
+                         f"{n} microbatches")
+    micro = [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i] for k, x in batch.items()}
+             for i in range(n)]
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()}
+    lsum = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
+    for mb in micro:
+        loss, _, g = one(mb)
+        grads = {k: a + g[k].to(a.dtype) for k, a in grads.items()}
+        lsum = lsum + loss
+    loss = lsum / n
+    return loss, {"loss": loss, "ce_loss": loss}, {k: g / n for k, g in grads.items()}
+
+
+def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
+                    grad_compression: Optional[str] = None, n_microbatches: int = 1, *,
+                    dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics): the
+    gradients of :func:`loss_and_grads` (``n_microbatches`` as there), then
+    the optimizer.  ``REPRO_OPT8BIT=1``, read when the step is made, takes
+    the 8-bit optimizer state.
+    """
+    use_8bit = os.environ.get("REPRO_OPT8BIT") == "1"
+    apply_fn = adamw.apply_8bit if use_8bit else adamw.apply
+
+    def train_step(params: dict, opt_state: adamw.AdamWState, batch: dict):
+        _, metrics, grads = loss_and_grads(cfg, params, batch,
+                                           n_microbatches=n_microbatches, dtype=dtype)
+        if grad_compression:
+            grads = compression.compress_tree(grads, method=grad_compression)
+        params, opt_state, opt_metrics = apply_fn(opt, params, opt_state, grads)
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """(params, batch) -> metrics of ``loss_fn``, without gradients."""
+
+    @torch.no_grad()
+    def eval_step(params: dict, batch: dict):
+        _, metrics = transformer.loss_fn(params, cfg, batch, dtype=dtype)
+        return metrics
+
+    return eval_step
 
 
 def make_prefill_step(model: Transformer) -> Callable:

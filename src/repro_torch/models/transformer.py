@@ -1,21 +1,25 @@
-"""Model assembly: config -> param defs -> forward / prefill / decode (after
-``repro.models.transformer``).
+"""Model assembly: config -> param defs -> forward / prefill / decode / loss
+(after ``repro.models.transformer``).
 
-:class:`Transformer` holds the weights as parameters named by the reference's
-checkpoint flatten paths (``embed``, ``groups/0/p0/attn/wq``, ``ln_f``,
-``lm_head``), each block group's layers stacked on a leading ``repeats`` axis.
-A ``for`` loop over the stacked layer index takes the place of ``lax.scan``.
-Global- and local-attention layers (dense FFN), RWKV-6 layers and RG-LRU
-layers are ported; every other feature raises ``NotImplementedError`` when
-the model is built.
+Parameters are a flat dict keyed by the reference's checkpoint flatten paths
+(``embed``, ``groups/0/p0/attn/wq``, ``ln_f``, ``lm_head``), each block
+group's layers stacked on a leading ``repeats`` axis; :class:`Transformer`
+holds them as module parameters.  A ``for`` loop over the stacked layer index
+takes the place of ``lax.scan``.  Global- and local-attention layers (dense
+FFN), RWKV-6 layers and RG-LRU layers are ported for serving; every other
+feature raises ``NotImplementedError`` when the model is built.  Training
+(``loss_fn``) takes the attention layers only: the RWKV-6 and RG-LRU
+kernels have no backward yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pmod
@@ -35,6 +39,7 @@ from repro_torch.models.params import ParamDef
 # Parameter definitions
 # ---------------------------------------------------------------------------
 PORTED_KINDS = ("global", "local", "rwkv", "rglru")
+TRAINABLE_KINDS = ("global", "local")
 # recurrent kinds: (block, zero state); the block updates a given state in place
 RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
              "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}
@@ -94,18 +99,21 @@ def model_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def _nest(flat: dict[str, torch.Tensor], prefix: str, r: int) -> dict:
-    """Layer ``r`` of the stacked params under ``prefix`` as a nested dict
-    of views."""
-    out: dict = {}
-    for path, t in flat.items():
+def _layers(params: dict[str, torch.Tensor], prefix: str, repeats: int) -> list[dict]:
+    """The ``repeats`` layers of the stacked params under ``prefix``, each a
+    nested dict of views.  Each stack is split by one ``unbind``, so under
+    autograd it gets one stacked gradient (a select a layer would add a
+    full-size zero gradient of the stack for every layer)."""
+    out: list[dict] = [{} for _ in range(repeats)]
+    for path, t in params.items():
         if not path.startswith(prefix):
             continue
         *parents, leaf = path[len(prefix):].split("/")
-        node = out
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = t[r]
+        for layer, view in zip(out, t.unbind(0)):
+            node = layer
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = view
     return out
 
 
@@ -142,13 +150,157 @@ def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
     return h, cache
 
 
+# ---------------------------------------------------------------------------
+# Functional passes over a flat param dict
+# ---------------------------------------------------------------------------
+def embed_tokens(params: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return params["embed"][tokens].to(dtype)
+
+
+def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].to(h.dtype).T
+    return h @ params["lm_head"].to(h.dtype)
+
+
+def _remat(cfg: ArchConfig) -> bool:
+    """Whether to recompute each layer in the backward (only when grad is
+    on): the reference's ``"full"`` policy remats each scan body, here each
+    layer, through ``torch.utils.checkpoint``."""
+    if not torch.is_grad_enabled() or cfg.remat_policy == "none":
+        return False
+    if cfg.remat_policy == "full":
+        return True
+    raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not ported yet")
+
+
+def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool = True,
+               positions: Optional[torch.Tensor] = None, collect_cache: bool = False):
+    """Apply all block groups. Returns (h, caches|None); each group's cache
+    is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"}, {"S",
+    "ts1", "ts2"} or {"h", "conv"}) stacked over the group's layers. A
+    recurrent layer's state is written straight into its slice of the
+    stack."""
+    caches = []
+    remat = not collect_cache and _remat(cfg)
+    for g, (pattern, repeats) in enumerate(cfg.block_groups):
+        cache_g = {}
+        layers = [_layers(params, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
+        for r in range(repeats):
+            for i, kind in enumerate(pattern):
+                apply = functools.partial(apply_layer, cfg, kind, causal=causal,
+                                          positions=positions)
+                if not collect_cache:
+                    h = (checkpoint(apply, layers[i][r], h, use_reentrant=False) if remat
+                         else apply(layers[i][r], h))[0]
+                    continue
+                state = None
+                if kind in RECURRENT:
+                    if r == 0:
+                        cache_g[f"p{i}"] = RECURRENT[kind][1](
+                            cfg, h.shape[0], h.device, stack=repeats)
+                    state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
+                h, entry = apply(layers[i][r], h, state=state)
+                if kind in RECURRENT:
+                    continue
+                if r == 0:
+                    cache_g[f"p{i}"] = {
+                        name: torch.empty((repeats,) + t.shape, dtype=t.dtype, device=t.device)
+                        for name, t in entry.items()}
+                for name, t in entry.items():
+                    cache_g[f"p{i}"][name][r] = t
+        caches.append(cache_g)
+    return h, (caches if collect_cache else None)
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *, dtype: torch.dtype,
+            collect_cache: bool = False):
+    """tokens (B, S) -> (final-normed h in ``dtype``, caches|None)."""
+    h = embed_tokens(params, tokens, dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, caches = run_groups(params, cfg, h, causal=True, positions=positions,
+                           collect_cache=collect_cache)
+    return rms_norm(h, params["ln_f"], cfg.norm_eps), caches
+
+
+# ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross entropy; bounds logits memory at
+# B x loss_chunk x vocab instead of B x S x vocab)
+# ---------------------------------------------------------------------------
+def lm_loss(params: dict, cfg: ArchConfig, h: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy over the mask plus the 1e-4 z-loss;
+    chunks of ``loss_chunk`` positions are recomputed in the backward."""
+    B, S, _ = h.shape
+    chunk = cfg.loss_chunk if cfg.loss_chunk and S % cfg.loss_chunk == 0 else S
+    nc = S // chunk
+    vocab = torch.arange(cfg.vocab_size, device=h.device)
+
+    def ce(hc, lc, mc):
+        logits = unembed(params, cfg, hc).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        # the label's logit as the reference takes it: a one-hot product
+        lab = torch.where(vocab == lc[..., None], logits, 0.0).sum(-1)
+        nll = (logz - lab) * mc
+        zl = 1e-4 * torch.square(logz) * mc
+        return nll.sum(), zl.sum(), mc.sum()
+
+    mask = mask.float()
+    if nc == 1:
+        nll, zl, cnt = ce(h, labels, mask)
+    else:
+        run = (lambda *a: checkpoint(ce, *a, use_reentrant=False)) \
+            if torch.is_grad_enabled() else ce
+        nll = zl = cnt = torch.zeros((), device=h.device)
+        for c in range(nc):
+            part = slice(c * chunk, (c + 1) * chunk)
+            n, z, m = run(h[:, part], labels[:, part], mask[:, part])
+            nll, zl, cnt = nll + n, zl + z, cnt + m
+    cnt = torch.clamp(cnt, min=1.0)
+    loss = nll / cnt
+    metrics = {"ce_loss": loss, "z_loss": zl / cnt, "tokens": cnt}
+    return loss + zl / cnt, metrics
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Compute-precision view of the master weights, cast once a step;
+    gradients flow through the cast back to the masters."""
+    return {path: t.to(dtype) if t.is_floating_point() else t for path, t in params.items()}
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    for kind in cfg.layer_kinds():
+        if kind not in TRAINABLE_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: training {kind!r} layers needs a backward kernel that is not "
+                "ported yet")
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+            dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """Scalar training loss and metrics; batch["tokens"] is (B, S + 1),
+    shifted into inputs and labels; batch["mask"] (B, S) is optional."""
+    check_trainable(cfg)
+    params = cast_params(params, dtype)
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    h, _ = forward(params, cfg, tokens[:, :-1], dtype=dtype)
+    loss, metrics = lm_loss(params, cfg, h, labels, mask)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
 class Transformer(nn.Module):
     """Decoder-only model (global or local attention, RWKV-6 and RG-LRU
-    layers) with stacked per-group weights.
+    layers) with stacked per-group weights, for serving.
 
-    ``dtype`` is the compute dtype and the dtype of the weights and caches.
-    Weights are random from ``seed``; ``load_state_dict`` (keyed by flatten
-    path) replaces them.
+    ``dtype`` is the compute dtype and the dtype of the weights and caches;
+    the weights are frozen.  Weights are random from ``seed``;
+    ``load_state_dict`` (keyed by flatten path) replaces them.  Training
+    runs on a flat dict of f32 masters through :func:`loss_fn`.
     """
 
     def __init__(self, cfg: ArchConfig, *, device: torch.device | str,
@@ -164,71 +316,27 @@ class Transformer(nn.Module):
     def flat(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())
 
-    # -- embedding ---------------------------------------------------------
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.get_parameter("embed")[tokens].to(self.dtype)
+        return embed_tokens(self.flat, tokens, self.dtype)
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return h @ self.get_parameter("embed").to(h.dtype).T
-        return h @ self.get_parameter("lm_head").to(h.dtype)
-
-    # -- group runners -----------------------------------------------------
-    def run_groups(self, h: torch.Tensor, *, causal: bool = True,
-                   positions: Optional[torch.Tensor] = None,
-                   collect_cache: bool = False):
-        """Apply all block groups. Returns (h, caches|None); each group's
-        cache is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"},
-        {"S", "ts1", "ts2"} or {"h", "conv"}) stacked over the group's
-        layers. A recurrent layer's state is written straight into its
-        slice of the stack."""
-        flat = self.flat
-        caches = []
-        for g, (pattern, repeats) in enumerate(self.cfg.block_groups):
-            cache_g = {}
-            for r in range(repeats):
-                for i, kind in enumerate(pattern):
-                    p = _nest(flat, f"groups/{g}/p{i}/", r)
-                    state = None
-                    if collect_cache and kind in RECURRENT:
-                        if r == 0:
-                            cache_g[f"p{i}"] = RECURRENT[kind][1](
-                                self.cfg, h.shape[0], h.device, stack=repeats)
-                        state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
-                    h, entry = apply_layer(self.cfg, kind, p, h, causal=causal,
-                                           positions=positions, state=state)
-                    if not collect_cache or kind in RECURRENT:
-                        continue
-                    if r == 0:
-                        cache_g[f"p{i}"] = {
-                            name: torch.empty((repeats,) + t.shape, dtype=t.dtype,
-                                              device=t.device)
-                            for name, t in entry.items()}
-                    for name, t in entry.items():
-                        cache_g[f"p{i}"][name][r] = t
-            caches.append(cache_g)
-        return h, (caches if collect_cache else None)
+        return unembed(self.flat, self.cfg, h)
 
     def run_groups_decode(self, h: torch.Tensor, cache_groups: list, pos: int):
         flat = self.flat
         for g, ((pattern, repeats), gcache) in enumerate(
                 zip(self.cfg.block_groups, cache_groups)):
+            layers = [_layers(flat, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
             for r in range(repeats):
                 for i, kind in enumerate(pattern):
-                    p = _nest(flat, f"groups/{g}/p{i}/", r)
                     layer_cache = {name: t[r] for name, t in gcache[f"p{i}"].items()}
-                    h, _ = decode_apply_layer(self.cfg, kind, p, h, layer_cache, pos)
+                    h, _ = decode_apply_layer(self.cfg, kind, layers[i][r], h, layer_cache, pos)
         return h, cache_groups
 
-    # -- full passes -------------------------------------------------------
     def forward(self, tokens: torch.Tensor, *, collect_cache: bool = False):
         """tokens (B, S) -> (final-normed h, caches|None)."""
-        h = self.embed_tokens(tokens)
-        positions = torch.arange(h.shape[1], device=h.device)
-        h, caches = self.run_groups(h, causal=True, positions=positions,
-                                    collect_cache=collect_cache)
-        h = rms_norm(h, self.get_parameter("ln_f"), self.cfg.norm_eps)
-        return h, caches
+        return forward(self.flat, self.cfg, tokens, dtype=self.dtype,
+                       collect_cache=collect_cache)
 
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One decode step. tokens (B, 1). Returns (logits, cache); the

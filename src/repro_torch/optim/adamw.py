@@ -1,0 +1,159 @@
+"""AdamW + global-norm clipping + schedules, and the 8-bit state variant
+(after ``repro.optim.adamw``).
+
+Parameters, gradients and moments are flat dicts keyed by flatten path; the
+state mirrors the parameters.  Every scalar of the update (the schedule, the
+bias corrections ``b ** step``, the clip scale) is computed in f32, as the
+reference computes it, so both packages take the same step to the ulp.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import torch
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # () int32
+    m: dict  # like params (f32), or {"q", "s"} entries in the 8-bit state
+    v: dict
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_ratio, in f32."""
+    step_f = step.to(torch.float32)
+    warm = torch.clamp(step_f / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp(
+        (step_f - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    decay = cfg.min_lr_ratio + (1.0 - cfg.min_lr_ratio) * cos
+    return cfg.lr * warm * decay
+
+
+def init(params: dict) -> AdamWState:
+    device = next(iter(params.values())).device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()},
+        v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()})
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
+    for x in tree.values():
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+def _clip_and_step(cfg: AdamWConfig, state: AdamWState, grads: dict):
+    """(pre-clip norm, clip scale, new step, lr, b1c, b2c), all f32 but the step."""
+    gnorm = global_norm(grads)
+    if cfg.grad_clip > 0:
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    step = state.step + 1
+    step_f = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(cfg.b1, step_f)
+    b2c = 1.0 - torch.pow(cfg.b2, step_f)
+    return gnorm, scale, step, schedule(cfg, step), b1c, b2c
+
+
+@torch.no_grad()
+def apply(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict):
+    """One AdamW update. Returns (new_params, new_state, metrics); weight
+    decay applies to every leaf, norms included, as in the reference."""
+    gnorm, scale, step, lr, b1c, b2c = _clip_and_step(cfg, state, grads)
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        m_n = cfg.b1 * state.m[k] + (1.0 - cfg.b1) * g
+        v_n = cfg.b2 * state.v[k] + (1.0 - cfg.b2) * torch.square(g)
+        mhat = m_n / b1c
+        vhat = v_n / b2c
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        new_p[k] = (p.float() - lr * delta).to(p.dtype)
+        new_m[k], new_v[k] = m_n, v_n
+    return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# 8-bit optimizer state (bitsandbytes-style blockwise quantization): m and v
+# of every leaf of at least QUANT_MIN_SIZE elements as int8 with one f32
+# scale a block of the last axis.
+# ---------------------------------------------------------------------------
+QUANT_MIN_SIZE = 4096  # leaves smaller than this stay f32
+
+
+def _opt_block(last_dim: int) -> int:
+    b = 256
+    while last_dim % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _q8(x: torch.Tensor) -> dict:
+    blk = _opt_block(x.shape[-1])
+    xb = x.reshape(*x.shape[:-1], x.shape[-1] // blk, blk)
+    s = torch.clamp(torch.amax(torch.abs(xb), dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xb / s[..., None]), -127, 127).to(torch.int8)
+    return {"q": q.reshape(x.shape), "s": s}
+
+
+def _dq8(ent: dict) -> torch.Tensor:
+    q, s = ent["q"], ent["s"]
+    blk = q.shape[-1] // s.shape[-1]
+    qb = q.reshape(*q.shape[:-1], q.shape[-1] // blk, blk)
+    return (qb.to(torch.float32) * s[..., None]).reshape(q.shape)
+
+
+def _quantizable(p: torch.Tensor) -> bool:
+    return p.numel() >= QUANT_MIN_SIZE and p.dim() >= 1
+
+
+def init_8bit(params: dict) -> AdamWState:
+    def z(p: torch.Tensor) -> Any:
+        zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return _q8(zeros) if _quantizable(p) else zeros
+
+    device = next(iter(params.values())).device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      m={k: z(p) for k, p in params.items()},
+                      v={k: z(p) for k, p in params.items()})
+
+
+@torch.no_grad()
+def apply_8bit(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict):
+    """AdamW with int8-quantized m/v (dequant -> update -> requant)."""
+    gnorm, scale, step, lr, b1c, b2c = _clip_and_step(cfg, state, grads)
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        quant = _quantizable(p)
+        m = _dq8(state.m[k]) if quant else state.m[k]
+        v = _dq8(state.v[k]) if quant else state.v[k]
+        g = grads[k].float() * scale
+        m_n = cfg.b1 * m + (1.0 - cfg.b1) * g
+        v_n = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
+        delta = (m_n / b1c) / (torch.sqrt(v_n / b2c) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        new_p[k] = (p.float() - lr * delta).to(p.dtype)
+        new_m[k] = _q8(m_n) if quant else m_n
+        new_v[k] = _q8(v_n) if quant else v_n
+    return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}

@@ -8,7 +8,15 @@ only PyTorch:
 Tolerances: flash attention f32 1e-5 (the card sums in another order and
 uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
 reference's own, f32 5e-5, bf16 5e-2; RG-LRU f32 1e-5 (the reference's
-between its kernel and its oracle) and one bf16 ulp for a bf16 output."""
+between its kernel and its oracle) and one bf16 ulp for a bf16 output;
+the flash backward f32 5e-5 (the reference's VJP tolerance), bf16 2e-2 plus
+one bf16 ulp of the plain value.  The training tests run the trainer in a
+subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA initialises."""
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +26,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as kg
 from repro_torch.kernels import wkv6 as k6
+from repro_torch.models import params as pmod
+from repro_torch.models import transformer
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
@@ -410,3 +420,157 @@ def test_server_on_card_launches_rglru_per_layer_per_step(cuda):
     assert kg.launches == n_rg * ((1 + 3) + (1 + 6)) and fa.launches == 2 * n_local
     assert faulted.retries == 1
     np.testing.assert_array_equal(clean.outputs, faulted.outputs)
+
+
+# -- the flash backward and the LSE forward ------------------------------------
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+BWD_CASES = [
+    (2, 256, 4, 2, 64, True, 0, 0, 0.0),
+    (1, 1024, 4, 2, 64, True, 256, 0, 0.0),   # sliding window
+    (1, 1024, 2, 2, 64, True, 0, 256, 0.0),   # chunked
+    (1, 512, 8, 1, 64, True, 0, 0, 0.0),      # MQA
+    (1, 256, 2, 2, 64, True, 0, 0, 30.0),     # softcap
+    (1, 333, 4, 2, 128, False, 0, 0, 0.0),    # ragged S, no mask
+    (1, 300, 4, 2, 128, True, 100, 0, 0.0),   # window not a multiple of the tile
+    (2, 40, 4, 2, 16, True, 0, 0, 0.0),       # smoke width, one partial tile
+    (1, 96, 2, 1, 32, True, 0, 50, 0.0),      # chunk of 50
+    (1, 2048, 32, 8, 128, True, 0, 0, 0.0),   # rsc-llm training, B 1
+]
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _assert_bwd_close(got, want, dtype):
+    g, w = got.float().cpu(), want.float().cpu()
+    lim = BWD_TOL[dtype] + (2.0 ** -7 * w.abs() if dtype == torch.bfloat16 else 0.0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(((g - w).abs() <= lim).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_lse_forward_matches_plain(cuda, case, dtype):
+    kw = dict(causal=case[5], window=case[6], chunk=case[7], softcap=case[8])
+    q, k, v = _qkv(case, dtype, cuda)
+    before = (fa.launches, fa.lse_launches)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert (fa.launches, fa.lse_launches) == (before[0], before[1] + 1)
+    o_r, lse_r = ref.attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_close(o, o_r, dtype)
+    assert lse.shape == (case[0], case[2], case[1]) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_r.cpu().numpy(), atol=1e-5)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))  # the serve output, unchanged
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype):
+    kw = dict(causal=case[5], window=case[6], chunk=case[7], softcap=case[8])
+    q, k, v = _qkv(case, dtype, cuda)
+    do = torch.flip(q, dims=(1,)).contiguous()
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.bwd_launches == before + 2
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _assert_bwd_close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_backward_kernel_refuses_head_dim_256_and_a_misaligned_bf16_tensor(cuda):
+    q = torch.zeros((1, 64, 2, 256), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 1, 256), device=cuda, dtype=torch.bfloat16)
+    o, lse = fa.flash_attention_lse(q, k, k)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q)
+    q, k = q[..., :64].contiguous(), k[..., :64].contiguous()
+    o, lse = fa.flash_attention_lse(q, k, k)
+    do = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd(q, k, k, o, lse, do)
+
+
+def test_serving_launches_only_the_forward_without_lse(cuda):
+    """Under inference mode the serve path takes the forward that writes no
+    LSE, once per layer per prefill, and never the backward."""
+    cfg = smoke_config(get_arch("rsc-llm"))
+    fa.launches = fa.lse_launches = fa.bwd_launches = 0
+    Server(cfg, ServeConfig(batch=2, prompt_len=64, max_new_tokens=4)).run()
+    assert (fa.launches, fa.lse_launches, fa.bwd_launches) == (cfg.n_layers, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_loss_on_card_goes_through_the_kernels(cuda, dtype):
+    """Smoke rsc-llm's loss and gradients on the card: the LSE forward twice
+    per layer (the forward and its remat recompute) and the backward once;
+    f32 matches the CPU's plain path to 1e-5 (loss) and 1e-4 (grads)."""
+    cfg = smoke_config(get_arch("rsc-llm"))
+    params = pmod.materialize(transformer.model_defs(cfg), seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (2, 65)))
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        fa.lse_launches = fa.bwd_launches = 0
+        loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(dev)}, dtype=dtype)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append([loss.detach().cpu()] + [g.cpu() for g in grads])
+    assert (fa.lse_launches, fa.bwd_launches) == (2 * cfg.n_layers, cfg.n_layers)
+    assert all(torch.isfinite(t).all() for t in out[1])
+    if dtype == torch.float32:
+        assert abs(float(out[0][0] - out[1][0])) <= 1e-5
+        for a, b in zip(out[0][1:], out[1][1:]):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
+
+
+def _run_py(code, **env):
+    base = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=dict(base, PYTHONPATH=str(ROOT / "src"), **env))
+
+
+def test_trainer_on_card_requires_the_cublas_setting(cuda):
+    code = ("from repro_torch.configs.base import get_arch, smoke_config\n"
+            "from repro_torch.runtime.train_loop import FaultTolerantTrainer, TrainerConfig\n"
+            "FaultTolerantTrainer(smoke_config(get_arch('rsc-llm')), TrainerConfig())\n")
+    r = _run_py(code)
+    assert r.returncode != 0 and "CUBLAS_WORKSPACE_CONFIG" in r.stderr
+
+
+FAULTED_VS_CLEAN = """
+import sys
+import numpy as np, torch
+from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+from repro_torch.configs.base import get_arch, smoke_config
+from repro_torch.models import params as pmod, transformer
+from repro_torch.optim import adamw
+from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
+from repro_torch.runtime.train_loop import FaultTolerantTrainer, TrainerConfig
+cfg = smoke_config(get_arch("rsc-llm"))
+p0 = {p: torch.empty(d.shape, device="meta") for p, d in pmod.flatten(transformer.model_defs(cfg))}
+leaves = []
+for label, sched in (("clean", {}), ("fault", {10: InjectedFault("gpu_memory_errors")})):
+    tc = TrainerConfig(total_steps=16, global_batch=4, seq_len=64, ckpt_every_steps=4,
+                       ckpt_async=False, seed=7, ckpt_dir=sys.argv[1] + "/" + label)
+    rep = FaultTolerantTrainer(cfg, tc, FaultInjector(schedule=sched), device="cuda").run()
+    assert rep.final_step == 16
+    _, tree, _ = CheckpointManager(tc.ckpt_dir).restore((p0, adamw.init(p0)))
+    leaves.append(_flatten(tree))
+assert all(np.array_equal(leaves[0][k].numpy(), leaves[1][k].numpy()) for k in leaves[0])
+print("identical", len(leaves[0]))
+"""
+
+
+def test_faulted_training_on_card_ends_bit_identical_to_clean(cuda, tmp_path):
+    """tests/test_runtime.py's bit-exact resume on the card: smoke rsc-llm in
+    bf16 through the kernels, a clean run and one that crashes before step
+    11, final checkpoints equal leaf by leaf."""
+    base = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    r = subprocess.run([sys.executable, "-c", FAULTED_VS_CLEAN, str(tmp_path)],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(base, PYTHONPATH=str(ROOT / "src"),
+                                CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "identical 37" in r.stdout
