@@ -16,13 +16,14 @@
 //
 // Three kernels, no atomics, so two runs give the same bits (the trainer's
 // bit-exact resume depends on it):
-//   delta  one warp per (b, s, h) row, a fixed shuffle-tree sum.
-//   dkdv   one block per (b, kv head, key tile). K and V stay in shared
+//   delta  a fixed shuffle-tree sum a (b, s, h) row: one warp (f32), or D / 8
+//          lanes that load 16 bytes each (bf16).
+//   dkdv   one block owns each (b, kv head, key tile). K and V stay in shared
 //          memory; the block loops over the G heads of its group and over
 //          the q tiles that the mask does not skip (tile_class, as the
 //          forward), recomputes S and dP, and keeps dK and dV in registers
 //          until the end.
-//   dq     one block per (b, head, q tile). Q and dO stay in shared memory;
+//   dq     one block owns each (b, head, q tile). Q and dO stay in shared memory;
 //          the block loops over the key tiles, recomputes S, dP and dS, and
 //          keeps dQ in registers.
 //
@@ -30,34 +31,58 @@
 // (halved under a causal mask); at rsc-llm training (B 2, S 2048, H 32,
 // KV 8, D 128) that is 1.72e11 FLOP, 0.174 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against ~0.1 ms for its bytes: operations bound. Both
-// designs do 7 products (S and dP twice). Their times are in PERF.md.
+// designs do 7 products (S and dP twice), so 0.243 ms is this design's
+// floor. Their times are in PERF.md.
 //
-// bf16 -- mma.sync m16n8k16 on the tensor cores (namespace tc). 4 warps a
-//   block; in dkdv a warp owns 16 keys of a 64-key tile and steps over q in
-//   32-row tiles, in dq a warp owns 16 q rows of a 64-row tile and steps over
-//   keys in 32-key tiles. Tiles are staged in shared memory by cp.async in
-//   rows padded to D + 8 (conflict-free ldmatrix). S^T and dP^T (dkdv) or S
-//   and dP (dq) come out in mma accumulators; P and dS are rounded to bf16
-//   and fed back from registers as the A operand of the next products (the
-//   accumulator layout of two n8 tiles is the A layout of one k16 step), with
-//   Q, dO or K as B through ldmatrix(.trans). Each step waits for its own
-//   tiles: a double-buffered cp.async ring was tried and was slower (PERF.md).
-//   Left on the table: wgmma, more rows a block, fewer registers (the
-//   dK / dV accumulators hold two blocks an SM).
-//
+// bf16 -- wgmma on the tensor cores, tiles fed by TMA (namespace wg). The
+//   dkdv and dq kernels are persistent grids of one block per SM with the
+//   heaviest causal items first, as the forward's; a block is three
+//   warpgroups: one thread of the third fills a ring of mbarrier-guarded
+//   stages by TMA and gives its registers to the two consumer warpgroups
+//   (setmaxnreg 40 / 232), which own 64 rows each.
+//   dkdv: an item is (b, kv head, 128-key tile); K and V stay in shared
+//     memory, Q, dO and the rows' delta and lse log2(e) stream through the
+//     ring, 64 q rows a stage. S^T = K Q^T and dP^T = V dO^T are wgmma
+//     m64n64k16 with both operands in swizzled shared memory; P^T and dS^T
+//     are made in registers (lse and delta indexed by the accumulator's
+//     column, since q rows are its N dimension), rounded to bf16 and fed
+//     back as the register A operand of dV += P^T dO and dK += dS^T Q
+//     (m64nDk16), dO and Q read N-major through the descriptor's transpose
+//     bit: one swizzled Q tile is the K-major B of S^T and the N-major B of
+//     dK.
+//   dq: an item is (b, head, 128-row q tile); Q and dO stay, K and V
+//     stream, 64 keys a stage: S = Q K^T and dP = dO V^T (shared memory
+//     operands), dQ += dS K (dS from registers, K read N-major).
+//   A warpgroup whose 64 rows the mask skips for a stage still waits for it
+//   and releases it, so every role passes every barrier phase. TMA
+//   zero-fills rows past S; the mask drops them and no store goes past S.
+//   The element-wise pass keeps the softcap's branch outside its unrolled
+//   loops and masks through per-row (dq) or per-key (dkdv) intervals, as the
+//   forward does: with tanhf and attends() inside the loop both kernels ran
+//   about 3x slower (PERF.md). Shared memory at D 128: 64 KB resident + 3
+//   stages x 32.5 KB. Left on the table (PERF.md): the S^T / dP^T products
+//   read both operands from shared memory at n = 64, the SM's whole 128 B a
+//   cycle; overlapping a warpgroup's element-wise work with its own products
+//   (split waits) spilled and was slower, turn-taking between the
+//   warpgroups gained 1%, float2 statistic loads spilled, and dQ with Q and
+//   dO as register A operands gained 3% with a spill.
+
 // f32 -- CUDA-core FMA (namespace cc), true f32 products for the 5e-5
 //   checks (tensor cores take f32 only as TF32). 256 threads as 16 x 16; a thread owns
 //   a 4 x 4 patch of each 64 x 64 score tile and 4 rows x D / 16 columns of
 //   its output; tiles staged in shared memory as f32 (rows padded by one
-//   float): 149 KB at D 128. D 256 would need 280 KB in either design's
-//   layout, so both take D <= 128.
+//   float): 149 KB at D 128. D 256 would need 280 KB in this layout, and
+//   the bf16 design's dK and dV accumulators (2 x 128 f32 a thread) would
+//   not fit in registers, so both take D <= 128.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_mask.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,40 +93,64 @@ struct BwdParams {
   const void* o;     // (B, Sq, H, D)
   const void* dout;  // (B, Sq, H, D)
   const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq), written by the first kernel
+  float* delta;      // (B, H, Sp), written by the first kernel
+  float* lse2;       // (B, H, Sp), lse log2(e), written by the first kernel for bf16, or null
   void* dq;          // like q
   void* dk;          // like k
   void* dv;          // like v
   int B, Sq, Sk, H, KV;
+  int Sp;  // the row pitch of delta and lse2: Sq (f32), Sq rounded up to 4 (bf16, for TMA)
   int causal, window, chunk;
   float softcap, scale;
 };
 
+constexpr float LOG2E = 1.4426950408889634f;
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp a row
+// delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], rows Sp apart;
+// with lse2, lse * log2(e) at the same place. f32: one warp a row; bf16:
+// 16 bytes a lane, D / 8 lanes a row. A fixed shuffle tree sums a row.
 template <typename T>
 __global__ void __launch_bounds__(256) delta_kernel(const BwdParams p, int D) {
-  const int row = (blockIdx.x * 256 + threadIdx.x) >> 5;  // b * Sq * H + s * H + h
-  const int lane = threadIdx.x & 31;
-  if (row >= p.B * p.Sq * p.H) return;  // uniform over the warp
-  const T* o = static_cast<const T*>(p.o) + (int64_t)row * D;
-  const T* d = static_cast<const T*>(p.dout) + (int64_t)row * D;
+  const int lanes = sizeof(T) == 4 ? 32 : D / 8;  // a row's
+  const int64_t thread = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  const int64_t row = thread / lanes;  // b * Sq * H + s * H + h
+  const int lane = (int)(thread % lanes);
+  const bool in = row < (int64_t)p.B * p.Sq * p.H;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(d[c]), to_f(o[c]), acc);
+  if (in) {
+    const T* o = static_cast<const T*>(p.o) + row * D;
+    const T* d = static_cast<const T*>(p.dout) + row * D;
+    if constexpr (sizeof(T) == 4) {
+      for (int c = lane; c < D; c += 32) acc = fmaf(to_f(d[c]), to_f(o[c]), acc);
+    } else {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + lane * 8);
+      const uint4 dv = *reinterpret_cast<const uint4*>(d + lane * 8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = row % p.H, s = (row / p.H) % p.Sq, b = row / (p.H * p.Sq);
-    p.delta[((int64_t)b * p.H + h) * p.Sq + s] = acc;
+      for (int j = 0; j < 4; ++j) {
+        const float2 of = __bfloat1622float2(o2[j]), df = __bfloat1622float2(d2[j]);
+        acc = fmaf(df.x, of.x, acc);
+        acc = fmaf(df.y, of.y, acc);
+      }
+    }
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && lane == 0) {
+    const int h = (int)(row % p.H), s = (int)(row / p.H % p.Sq), b = (int)(row / ((int64_t)p.H * p.Sq));
+    const int64_t at = ((int64_t)b * p.H + h) * p.Sp + s;
+    p.delta[at] = acc;
+    if (p.lse2 != nullptr) p.lse2[at] = p.lse[((int64_t)b * p.H + h) * p.Sq + s] * LOG2E;
   }
 }
 
 template <typename T>
 cudaError_t launch_delta(const BwdParams& p, int D, cudaStream_t stream) {
-  const int64_t rows = (int64_t)p.B * p.Sq * p.H;
-  delta_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(p, D);
+  const int64_t threads = (int64_t)p.B * p.Sq * p.H * (sizeof(T) == 4 ? 32 : D / 8);
+  delta_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(p, D);
   return cudaGetLastError();
 }
 
@@ -384,295 +433,530 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
 
 }  // namespace cc
 
-namespace tc {
+// ---------------------------------------------------------------------------
+// bf16: wgmma with TMA rings and warp specialisation (see the note at the
+// top). Tiles are swizzled as hopper.cuh describes: W columns a row, D / W
+// such column blocks a tile, 64 rows a tile.
+namespace wg {
 
 using bf16 = __nv_bfloat16;
-constexpr int NT = 128;  // 4 warps
-constexpr int KB = 64;   // keys a dkdv block, 16 a warp
-constexpr int QS = 32;   // q rows a dkdv step
-constexpr int QB = 64;   // q rows a dq block, 16 a warp
-constexpr int KS = 32;   // keys a dq step
+constexpr int NT = 384;    // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int R = 64;      // rows a consumer warpgroup owns; rows a streamed tile
+constexpr int STAGES = 3;  // ring depth
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-// 16 bytes global -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
-}
-// d += a b, m16n8k16, bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// The A operand (16 x 16, k = 16 ks ..) from the accumulators of n8 tiles
-// 2 ks and 2 ks + 1: their layout is the A layout, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[4][4], int ks) {
-  a[0] = pack(c[2 * ks][0], c[2 * ks][1]);
-  a[1] = pack(c[2 * ks][2], c[2 * ks][3]);
-  a[2] = pack(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-  a[3] = pack(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-}
-
-// rows start .. start + rows - 1 of a (., D) bf16 slab whose rows are rs
-// elements apart, into shared memory at a pitch of D + 8; rows past limit 0
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t rs, int start,
-                                          int rows, int limit) {
-  constexpr int VPR = D / 8;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < rows * VPR; i += NT) {
-    const int r = i / VPR, c = (i % VPR) * 8, gr = start + r;
-    const bool ok = gr < limit;
-    cp_async16(smem_u32(dst + r * (D + 8) + c), src + (ok ? (int64_t)gr * rs + c : 0), ok);
-  }
+struct Cfg {
+  static constexpr int W = Swizzle<D>::W, NB = D / W, ROW = W * 2;
+  static constexpr int TILE = R * D * 2;  // bytes of a 64-row bf16 tile
+  static constexpr int STAT = 2 * R * 4;  // a dK / dV stage's delta and lse log2(e) rows
+  // two resident tiles for each consumer warpgroup, two streamed tiles (and
+  // in dK / dV their rows' statistics) a stage; 1 KB alignment and the
+  // barriers on top. D 128: 64 KB + 3 x 32.5 KB
+  static constexpr size_t SMEM = 4 * TILE + STAGES * (2 * TILE + STAT) + 1024 + 128;
+};
+
+// Round r of a persistent grid hands items r * gridDim.x onwards to the
+// blocks, in reverse order on odd rounds, so that a block that took a
+// heavy item in one round takes a light one in the next.
+__device__ __forceinline__ int round_item(int r) {
+  return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-// acc[n8 tile][4] += A (16 rows of a, from row a_row) times the rows b_row ..
-// b_row + 31 of b, transposed: the 16 x 32 block of a b^T, both K-major
-// (rows of D contiguous) in shared memory at a pitch of D + 8
-template <int D>
-__device__ __forceinline__ void rows_dot(float (&acc)[4][4], const bf16* a, int a_row,
-                                         const bf16* b, int b_row, int lane) {
-  constexpr int P = D + 8;
-  const int lr = lane & 7, lq = lane >> 3;
+// s (the scores) becomes P and dp (dO . v) becomes dS, element by element,
+// stat(i, lse2, del) giving element i's lse log2(e) and delta; the softcap
+// is uniform, so one loop runs. The mask comes after, in a loop of its own.
+template <class Stat>
+__device__ __forceinline__ void probs_grads(float (&s)[R / 2], float (&dp)[R / 2], const Stat& stat,
+                                            const BwdParams& p) {
+  if (p.softcap > 0.f) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, smem_u32(a + (a_row + lr + (lq & 1) * 8) * P + kk * 16 + (lq >> 1) * 8));
+    for (int i = 0; i < R / 2; ++i) {
+      float l, d;
+      stat(i, l, d);
+      const float th = tanhf(s[i] * p.scale / p.softcap);
+      s[i] = ex2(th * p.softcap * LOG2E - l);
+      dp[i] = s[i] * (dp[i] - d) * (1.f - th * th) * p.scale;
+    }
+  } else {
+    const float sl2 = p.scale * LOG2E;
 #pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t bf[4];  // b0, b1 of n8 tile 2 np, then of 2 np + 1
-      ldsm_x4(bf, smem_u32(b + (b_row + np * 16 + lr + (lq >> 1) * 8) * P + kk * 16 +
-                           (lq & 1) * 8));
-      mma(acc[2 * np], af, bf[0], bf[1]);
-      mma(acc[2 * np + 1], af, bf[2], bf[3]);
+    for (int i = 0; i < R / 2; ++i) {
+      float l, d;
+      stat(i, l, d);
+      s[i] = ex2(fmaf(s[i], sl2, -l));
+      dp[i] = s[i] * (dp[i] - d) * p.scale;
     }
   }
 }
 
-// out[n8 tile of D][4] += A (16 x 32, from the accumulators c) times the 32
-// rows b_row .. of b (row-major, D contiguous): B read transposed
-template <int D>
-__device__ __forceinline__ void acc_times_rows(float (&out)[D / 8][4], const float (&c)[4][4],
-                                               const bf16* b, int b_row, int lane) {
-  constexpr int P = D + 8;
-  const int lr = lane & 7, lq = lane >> 3;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t af[4];
-    acc_to_a(af, c, ks);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, smem_u32(b + (b_row + ks * 16 + lr + (lq & 1) * 8) * P + np * 16 +
-                             (lq >> 1) * 8));
-      mma(out[2 * np], af, bf[0], bf[1]);
-      mma(out[2 * np + 1], af, bf[2], bf[3]);
-    }
+// the keys lo .. hi that q row qi attends (lo > hi: none)
+__device__ __forceinline__ void key_range(int qi, const BwdParams& p, int& lo, int& hi) {
+  lo = 0;
+  hi = p.Sk - 1;
+  if (p.causal) hi = min(hi, qi);
+  if (p.window > 0) lo = max(lo, qi - p.window + 1);
+  if (p.chunk > 0) {
+    const int first = qi / p.chunk * p.chunk;
+    lo = max(lo, first);
+    hi = min(hi, first + p.chunk - 1);
   }
 }
 
-// accumulator element e of n8 tile nt: row g + 8 (e >> 1), column 8 nt + 2 t + (e & 1)
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, int64_t rs, const float (&acc)[D / 8][4],
-                                           int row0, int limit, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + 8 * half;
-    if (r >= limit) continue;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(out + r * rs + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * half], acc[nt][2 * half + 1]);
+// the q rows lo .. hi that attend key kj (lo > hi: none)
+__device__ __forceinline__ void q_range(int kj, const BwdParams& p, int& lo, int& hi) {
+  lo = p.causal ? kj : 0;
+  hi = kj < p.Sk ? p.Sq - 1 : -1;
+  if (p.window > 0) hi = min(hi, kj + p.window - 1);
+  if (p.chunk > 0) {
+    const int first = kj / p.chunk * p.chunk;
+    lo = max(lo, first);
+    hi = min(hi, first + p.chunk - 1);
   }
 }
 
-template <int D>
-constexpr size_t smem_bytes() {  // either kernel: two 64-row and two 32-row tiles
-  return sizeof(bf16) * (size_t)(2 * 64 + 2 * 32) * (D + 8) + 2 * 32 * sizeof(float);
+// a (64 x N) accumulator's rows e < 2 ? r0 : r1, columns 8 n + 2 t + (e & 1),
+// stored as bf16 to rows of out (rs elements apart) that are < limit
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* out, int64_t rs, const float (&acc)[N / 2],
+                                           int r0, int r1, int limit, int t) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    if (r0 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(out + r0 * rs + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
+    if (r1 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(out + r1 * rs + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+  }
 }
 
-// dK, dV of 64 keys; warp w owns keys 16 w .. 16 w + 15 of the tile
+// dK and dV of 128 keys of one kv head; consumer warpgroup wg owns keys
+// 64 wg .. 64 wg + 63. K and V stay in shared memory; Q, dO and their rows'
+// delta and lse stream through the ring, 64 q rows a stage, over the G
+// heads of the group and the q tiles that tile_class does not skip.
 template <int D>
-__global__ void __launch_bounds__(NT) dkdv_kernel(const BwdParams p) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [KB][P]
-  bf16* sV = sK + KB * P;                        // [KB][P]
-  bf16* sQ = sV + KB * P;                        // [QS][P]
-  bf16* sdO = sQ + QS * P;                       // [QS][P]
-  float* sL = reinterpret_cast<float*>(sdO + QS * P);  // [QS]
-  float* sDel = sL + QS;
+__global__ void __launch_bounds__(NT, 1)
+    dkdv_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tdo,
+                __grid_constant__ const CUtensorMap tk, __grid_constant__ const CUtensorMap tv,
+                __grid_constant__ const CUtensorMap tstat, const BwdParams p) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, NB = C::NB, ROW = C::ROW, TILE = C::TILE, STAT = C::STAT;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int k_start = blockIdx.x * KB, kvh = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;    // [2 warpgroups][NB][64][W]
+  const uint32_t sV = sK + 2 * TILE;            // [2 warpgroups][NB][64][W]
+  const uint32_t sQ = sV + 2 * TILE;            // [STAGES][NB][64][W]
+  const uint32_t sdO = sQ + STAGES * TILE;      // [STAGES][NB][64][W]
+  const uint32_t sStat = sdO + STAGES * TILE;   // [STAGES][delta, lse log2(e)][64] f32
+  const uint32_t bars = sStat + STAGES * STAT;  // kv full / empty, then per stage full, empty
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 + STAGES + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int G = p.H / p.KV;
-  const int64_t kv_rs = (int64_t)p.KV * D, q_rs = (int64_t)p.H * D;
-  const int64_t kv_head = ((int64_t)b * p.Sk * p.KV + kvh) * D;
-  load_rows<D>(sK, static_cast<const bf16*>(p.k) + kv_head, kv_rs, k_start, KB, p.Sk);
-  load_rows<D>(sV, static_cast<const bf16*>(p.v) + kv_head, kv_rs, k_start, KB, p.Sk);
-  cp_async_wait_all();  // read after the first step's __syncthreads
+  const int n_qt = (p.Sq + R - 1) / R;
+  const int n_steps = G * n_qt;  // (head of the group, q tile) pairs, head-major
+  const int n_items = (p.Sk + 2 * R - 1) / (2 * R) * p.KV * p.B;
+  // items are (key tile, kv head, batch); under a causal mask the first key
+  // tiles see the most q rows, so they come first
+  auto item = [&](int i, int& k_start, int& kvh, int& b) {
+    k_start = i / (p.KV * p.B) * 2 * R;
+    kvh = i % p.KV;
+    b = (i / p.KV) % p.B;
+  };
+  // an item's steps in order, skipping the q tiles that none of its keys
+  // attends; the producer and both consumers walk the same sequence
+  auto next_step = [&](int k_start, int j) {
+    for (++j; j < n_steps; ++j)
+      if (tile_class(j % n_qt * R, R, k_start, 2 * R, p.Sq, p.Sk, p.causal, p.window,
+                     p.chunk) != SKIP)
+        break;
+    return j;
+  };
 
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  const int key0 = k_start + warp * 16;  // this thread's keys: key0 + g, key0 + g + 8
-  const int n_qt = (p.Sq + QS - 1) / QS;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const int64_t head = ((int64_t)b * p.Sq * p.H + h) * D;
-    const float* lse = p.lse + ((int64_t)b * p.H + h) * p.Sq;
-    const float* delta = p.delta + ((int64_t)b * p.H + h) * p.Sq;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q_start = qt * QS;
-      const int cls = tile_class(q_start, QS, k_start, KB, p.Sq, p.Sk, p.causal, p.window,
-                                 p.chunk);
-      if (cls == SKIP) continue;  // uniform over the block
-      __syncthreads();  // the last step's readers of sQ / sdO / sL / sDel are done
-      load_rows<D>(sQ, static_cast<const bf16*>(p.q) + head, q_rs, q_start, QS, p.Sq);
-      load_rows<D>(sdO, static_cast<const bf16*>(p.dout) + head, q_rs, q_start, QS, p.Sq);
-      if (threadIdx.x < QS) {
-        const int qi = q_start + threadIdx.x;
-        sL[threadIdx.x] = qi < p.Sq ? lse[qi] : 0.f;
-        sDel[threadIdx.x] = qi < p.Sq ? delta[qi] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 256);  // every consumer thread is done with an item's K and V
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);  // every consumer thread releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 q rows
-      float s[4][4] = {}, dp[4][4] = {};
-      rows_dot<D>(s, sK, warp * 16, sQ, 0, lane);
-      rows_dot<D>(dp, sV, warp * 16, sdO, 0, lane);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = key0 + g + 8 * (e >> 1), ql = nt * 8 + 2 * t + (e & 1);
-          const int qi = q_start + ql;
-          const bool keep = qi < p.Sq && (cls == FULL || attends(qi, kj, p));
-          s[nt][e] = prob_and_grad(s[nt][e], dp[nt][e], sL[ql], sDel[ql], keep, p);
+  if (warp >= 8) {
+    // producer: one thread keeps the ring full, running into the next item
+    // while the consumers finish the last
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      int stage = 0, phase = 0, kv_phase = 0;
+      for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
+        int k_start, kvh, b;
+        item(it, k_start, kvh, b);
+        // K and V wait until the consumers are done with the last item's;
+        // the item's first q tile goes ahead of them
+        auto load_kv = [&]() {
+          mbar_wait(kv_empty, kv_phase ^ 1);
+          kv_phase ^= 1;
+          mbar_expect_tx(kv_full, 4 * TILE);
+          for (int w = 0; w < 2; ++w)
+            for (int c = 0; c < NB; ++c) {
+              tma_load(sK + w * TILE + c * R * ROW, &tk, kv_full, c * W, k_start + R * w, kvh, b);
+              tma_load(sV + w * TILE + c * R * ROW, &tv, kv_full, c * W, k_start + R * w, kvh, b);
+            }
+        };
+        bool kv_loaded = false;
+        for (int j = next_step(k_start, -1); j < n_steps; j = next_step(k_start, j)) {
+          const int h = kvh * G + j / n_qt, q_start = j % n_qt * R;
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), 2 * TILE + STAT);
+          for (int c = 0; c < NB; ++c) {
+            tma_load(sQ + stage * TILE + c * R * ROW, &tq, full(stage), c * W, q_start, h, b);
+            tma_load(sdO + stage * TILE + c * R * ROW, &tdo, full(stage), c * W, q_start, h, b);
+          }
+          const int row = b * p.H + h;  // of delta; lse log2(e) is B H rows further
+          tma_load_2d(sStat + stage * STAT, &tstat, full(stage), q_start, row);
+          tma_load_2d(sStat + stage * STAT + R * 4, &tstat, full(stage), q_start,
+                      p.B * p.H + row);
+          if (!kv_loaded) load_kv();
+          kv_loaded = true;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-      // dV += P^T dO and dK += dS^T Q over the 32 q rows
-      acc_times_rows<D>(dv, s, sdO, 0, lane);
-      acc_times_rows<D>(dk, dp, sQ, 0, lane);
+        if (!kv_loaded) load_kv();
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const float* stat = reinterpret_cast<const float*>(smem_raw + (sStat - raw));
+    const uint32_t k_tile = sK + wg * TILE, v_tile = sV + wg * TILE;
+    // s, dp: S^T and dP^T, then P^T and dS^T; element 4 n + e is key e < 2 ?
+    // kj0 : kj1, q row 8 n + 2 t + (e & 1) of the step's tile. dk, dv:
+    // the same keys, column 8 n + 2 t + (e & 1)
+    float dk[D / 2], dv[D / 2], s[R / 2], dp[R / 2];
+    uint32_t pa[R / 16][4], da[R / 16][4];  // P^T and dS^T as A operands, bf16 pairs
+    int stage = 0, phase = 0, kv_phase = 0;  // the ring runs on across items
+    for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
+      int k_start, kvh, b;
+      item(it, k_start, kvh, b);
+      const int key0 = k_start + R * wg;  // this warpgroup's first key
+      const int kj0 = key0 + 16 * (warp & 3) + g, kj1 = kj0 + 8;
+      int lo0, hi0, lo1, hi1;  // the q rows that attend keys kj0 and kj1: an interval for every mask
+      q_range(kj0, p, lo0, hi0);
+      q_range(kj1, p, lo1, hi1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(kv_full, kv_phase);
+      kv_phase ^= 1;
+      for (int j = next_step(k_start, -1); j < n_steps; j = next_step(k_start, j)) {
+        const int q_start = j % n_qt * R;
+        const int cls = tile_class(q_start, R, key0, R, p.Sq, p.Sk, p.causal, p.window, p.chunk);
+        mbar_wait(full(stage), phase);
+        if (cls != SKIP) {  // uniform over the warpgroup; a skipped stage is still released
+          const uint32_t q_tile = sQ + stage * TILE, do_tile = sdO + stage * TILE;
+          // S^T = K Q^T and dP^T = V dO^T: K-major A and B, k16 steps of 32
+          // bytes inside a swizzled row
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t c = kk * 16 / W, off = (kk * 16 % W) * 2;
+            Wgmma<R>::ss(s, desc<D>(k_tile + c * R * ROW + off, 16, 8 * ROW),
+                         desc<D>(q_tile + c * R * ROW + off, 16, 8 * ROW), kk > 0 ? 1 : 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t c = kk * 16 / W, off = (kk * 16 % W) * 2;
+            Wgmma<R>::ss(dp, desc<D>(v_tile + c * R * ROW + off, 16, 8 * ROW),
+                         desc<D>(do_tile + c * R * ROW + off, 16, 8 * ROW), kk > 0 ? 1 : 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(s);
+          fence_operands(dp);
+          // P^T and dS^T in place: lse and delta belong to the columns
+          const float* del = stat + stage * (STAT / 4);
+          const float* lse2 = del + R;
+          probs_grads(s, dp, [&](int i, float& l, float& d) {
+            const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+            l = lse2[col];
+            d = del[col];
+          }, p);
+          if (cls != FULL || q_start + R > p.Sq) {  // tile_class ignores rows past Sq
+#pragma unroll
+            for (int i = 0; i < R / 2; ++i) {
+              const int qi = q_start + (i >> 2) * 8 + 2 * t + (i & 1);
+              const bool keep = (i & 2) ? (qi >= lo1 && qi <= hi1) : (qi >= lo0 && qi <= hi0);
+              s[i] = keep ? s[i] : 0.f;
+              dp[i] = keep ? dp[i] : 0.f;
+            }
+          }
+          acc_to_a<R>(pa, s);
+          acc_to_a<R>(da, dp);
+          // dV += P^T dO and dK += dS^T Q: dO and Q are N-major (D
+          // contiguous), so B is read transposed; 16 q rows a step are two
+          // 8-row groups (SBO), the D blocks are LBO apart
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < R / 16; ++kk)
+            Wgmma<D>::rs(dv, pa[kk], desc<D>(do_tile + kk * 16 * ROW, R * ROW, 8 * ROW));
+#pragma unroll
+          for (int kk = 0; kk < R / 16; ++kk)
+            Wgmma<D>::rs(dk, da[kk], desc<D>(q_tile + kk * 16 * ROW, R * ROW, 8 * ROW));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dv);
+          fence_operands(dk);
+        }
+        mbar_arrive(empty(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_arrive(kv_empty);  // K and V are read no more: the next item's may load
+      const int64_t rs = (int64_t)p.KV * D, head = ((int64_t)b * p.Sk * p.KV + kvh) * D;
+      store_rows<D>(static_cast<bf16*>(p.dk) + head, rs, dk, kj0, kj1, p.Sk, t);
+      store_rows<D>(static_cast<bf16*>(p.dv) + head, rs, dv, kj0, kj1, p.Sk, t);
     }
   }
-  store_rows<D>(static_cast<bf16*>(p.dk) + kv_head, kv_rs, dk, key0, p.Sk, lane);
-  store_rows<D>(static_cast<bf16*>(p.dv) + kv_head, kv_rs, dv, key0, p.Sk, lane);
 }
 
-// dQ of 64 q rows of one head; warp w owns rows 16 w .. 16 w + 15
+// dQ of 128 q rows of one head; consumer warpgroup wg owns rows 64 wg ..
+// 64 wg + 63. Q and dO stay in shared memory; K and V stream through the
+// ring, 64 keys a stage, over the key tiles that tile_class does not skip.
 template <int D>
-__global__ void __launch_bounds__(NT) dq_kernel(const BwdParams p) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [QB][P]
-  bf16* sdO = sQ + QB * P;                       // [QB][P]
-  bf16* sK = sdO + QB * P;                       // [KS][P]
-  bf16* sV = sK + KS * P;                        // [KS][P]
+__global__ void __launch_bounds__(NT, 1)
+    dq_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tdo,
+              __grid_constant__ const CUtensorMap tk, __grid_constant__ const CUtensorMap tv,
+              const BwdParams p) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, NB = C::NB, ROW = C::ROW, TILE = C::TILE;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  // under a causal mask the last q tiles do the most work: they go first
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q_start = qt * QB, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int64_t kv_rs = (int64_t)p.KV * D, q_rs = (int64_t)p.H * D;
-  const int64_t head = ((int64_t)b * p.Sq * p.H + h) * D;
-  const int64_t kv_head = ((int64_t)b * p.Sk * p.KV + kvh) * D;
-  load_rows<D>(sQ, static_cast<const bf16*>(p.q) + head, q_rs, q_start, QB, p.Sq);
-  load_rows<D>(sdO, static_cast<const bf16*>(p.dout) + head, q_rs, q_start, QB, p.Sq);
-  cp_async_wait_all();  // read after the first step's __syncthreads
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;  // [2 warpgroups][NB][64][W]
+  const uint32_t sdO = sQ + 2 * TILE;                         // [2 warpgroups][NB][64][W]
+  const uint32_t sK = sdO + 2 * TILE;                         // [STAGES][NB][64][W]
+  const uint32_t sV = sK + STAGES * TILE;                     // [STAGES][NB][64][W]
+  const uint32_t bars = sV + STAGES * TILE;  // q full / empty, then per stage full, empty
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto full = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 + STAGES + s); };
 
-  const int row0 = q_start + warp * 16;  // this thread's rows: row0 + g, row0 + g + 8
-  float lse[2], del[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = row0 + g + 8 * half;
-    const int64_t at = ((int64_t)b * p.H + h) * p.Sq + qi;
-    lse[half] = qi < p.Sq ? p.lse[at] : 0.f;
-    del[half] = qi < p.Sq ? p.delta[at] : 0.f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_qt = (p.Sq + 2 * R - 1) / (2 * R);
+  const int n_items = n_qt * p.H * p.B;
+  const int n_kt = (p.Sk + R - 1) / R;
+  // items are (q tile, head, batch); under a causal mask the last q tiles do
+  // the most work, so they come first, and heads that share a kv head are
+  // neighbours
+  auto item = [&](int i, int& q_start, int& h, int& b) {
+    const int qt = i / (p.H * p.B);
+    q_start = (p.causal ? n_qt - 1 - qt : qt) * 2 * R;
+    h = i % p.H;
+    b = (i / p.H) % p.B;
+  };
+  auto next_tile = [&](int q_start, int kt) {
+    for (++kt; kt < n_kt; ++kt)
+      if (tile_class(q_start, 2 * R, kt * R, R, p.Sq, p.Sk, p.causal, p.window, p.chunk) != SKIP)
+        break;
+    return kt;
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float dq[D / 8][4] = {};
-  const int n_kt = (p.Sk + KS - 1) / KS;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k_start = kt * KS;
-    const int cls = tile_class(q_start, QB, k_start, KS, p.Sq, p.Sk, p.causal, p.window,
-                               p.chunk);
-    if (cls == SKIP) continue;  // uniform over the block
-    __syncthreads();  // the last step's readers of sK / sV are done
-    load_rows<D>(sK, static_cast<const bf16*>(p.k) + kv_head, kv_rs, k_start, KS, p.Sk);
-    load_rows<D>(sV, static_cast<const bf16*>(p.v) + kv_head, kv_rs, k_start, KS, p.Sk);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 q rows x 32 keys
-    float s[4][4] = {}, dp[4][4] = {};
-    rows_dot<D>(s, sQ, warp * 16, sK, 0, lane);
-    rows_dot<D>(dp, sdO, warp * 16, sV, 0, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1, qi = row0 + g + 8 * half;
-        const int kj = k_start + nt * 8 + 2 * t + (e & 1);
-        const bool keep = qi < p.Sq && (cls == FULL || attends(qi, kj, p));
-        prob_and_grad(s[nt][e], dp[nt][e], lse[half], del[half], keep, p);
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      int stage = 0, phase = 0, q_phase = 0;
+      for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
+        int q_start, h, b;
+        item(it, q_start, h, b);
+        const int kvh = h / (p.H / p.KV);
+        // Q and dO wait until the consumers are done with the last item's;
+        // the item's first K and V tiles go ahead of them
+        auto load_q = [&]() {
+          mbar_wait(q_empty, q_phase ^ 1);
+          q_phase ^= 1;
+          mbar_expect_tx(q_full, 4 * TILE);
+          for (int w = 0; w < 2; ++w)
+            for (int c = 0; c < NB; ++c) {
+              tma_load(sQ + w * TILE + c * R * ROW, &tq, q_full, c * W, q_start + R * w, h, b);
+              tma_load(sdO + w * TILE + c * R * ROW, &tdo, q_full, c * W, q_start + R * w, h, b);
+            }
+        };
+        bool q_loaded = false;
+        for (int kt = next_tile(q_start, -1); kt < n_kt; kt = next_tile(q_start, kt)) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), 2 * TILE);
+          for (int c = 0; c < NB; ++c) {
+            tma_load(sK + stage * TILE + c * R * ROW, &tk, full(stage), c * W, kt * R, kvh, b);
+            tma_load(sV + stage * TILE + c * R * ROW, &tv, full(stage), c * W, kt * R, kvh, b);
+          }
+          if (!q_loaded) load_q();
+          q_loaded = true;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (!q_loaded) load_q();
       }
-    // dQ += dS K over the 32 keys
-    acc_times_rows<D>(dq, dp, sK, 0, lane);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const uint32_t q_tile = sQ + wg * TILE, do_tile = sdO + wg * TILE;
+    // s, dp: S and dP, then dS in dp; element 4 n + e is row e < 2 ? qi0 :
+    // qi1, key 8 n + 2 t + (e & 1) of the stage's tile. dq: the same rows,
+    // column 8 n + 2 t + (e & 1)
+    float dq[D / 2], s[R / 2], dp[R / 2];
+    uint32_t da[R / 16][4];  // dS as the A operand, bf16 pairs
+    int stage = 0, phase = 0, q_phase = 0;
+    for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
+      int q_start, h, b;
+      item(it, q_start, h, b);
+      const int row0 = q_start + R * wg;  // this warpgroup's first row
+      const int qi0 = row0 + 16 * (warp & 3) + g, qi1 = qi0 + 8;
+      // the rows' lse log2(e) and delta (0 past Sq: finite, never stored)
+      const int64_t at = ((int64_t)b * p.H + h) * p.Sp;
+      const float l0 = qi0 < p.Sq ? p.lse2[at + qi0] : 0.f, l1 = qi1 < p.Sq ? p.lse2[at + qi1] : 0.f;
+      const float d0 = qi0 < p.Sq ? p.delta[at + qi0] : 0.f, d1 = qi1 < p.Sq ? p.delta[at + qi1] : 0.f;
+      int lo0, hi0, lo1, hi1;  // the keys that rows qi0 and qi1 attend: an interval for every mask
+      key_range(qi0, p, lo0, hi0);
+      key_range(qi1, p, lo1, hi1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      for (int kt = next_tile(q_start, -1); kt < n_kt; kt = next_tile(q_start, kt)) {
+        const int k_start = kt * R;
+        const int cls = tile_class(row0, R, k_start, R, p.Sq, p.Sk, p.causal, p.window, p.chunk);
+        mbar_wait(full(stage), phase);
+        if (cls != SKIP) {  // uniform over the warpgroup; a skipped stage is still released
+          const uint32_t k_tile = sK + stage * TILE, v_tile = sV + stage * TILE;
+          // S = Q K^T and dP = dO V^T: K-major A and B
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t c = kk * 16 / W, off = (kk * 16 % W) * 2;
+            Wgmma<R>::ss(s, desc<D>(q_tile + c * R * ROW + off, 16, 8 * ROW),
+                         desc<D>(k_tile + c * R * ROW + off, 16, 8 * ROW), kk > 0 ? 1 : 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t c = kk * 16 / W, off = (kk * 16 % W) * 2;
+            Wgmma<R>::ss(dp, desc<D>(do_tile + c * R * ROW + off, 16, 8 * ROW),
+                         desc<D>(v_tile + c * R * ROW + off, 16, 8 * ROW), kk > 0 ? 1 : 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(s);
+          fence_operands(dp);
+          probs_grads(s, dp, [&](int i, float& l, float& d) {
+            l = (i & 2) ? l1 : l0;
+            d = (i & 2) ? d1 : d0;
+          }, p);
+          if (cls != FULL) {
+#pragma unroll
+            for (int i = 0; i < R / 2; ++i) {
+              const int kj = k_start + (i >> 2) * 8 + 2 * t + (i & 1);
+              const bool keep = (i & 2) ? (kj >= lo1 && kj <= hi1) : (kj >= lo0 && kj <= hi0);
+              dp[i] = keep ? dp[i] : 0.f;
+            }
+          }
+          acc_to_a<R>(da, dp);
+          // dQ += dS K: K is N-major (D contiguous), read transposed
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < R / 16; ++kk)
+            Wgmma<D>::rs(dq, da[kk], desc<D>(k_tile + kk * 16 * ROW, R * ROW, 8 * ROW));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dq);
+        }
+        mbar_arrive(empty(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_arrive(q_empty);  // Q and dO are read no more: the next item's may load
+      const int64_t rs = (int64_t)p.H * D;
+      store_rows<D>(static_cast<bf16*>(p.dq) + ((int64_t)b * p.Sq * p.H + h) * D, rs, dq, qi0,
+                    qi1, p.Sq, t);
+    }
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + head, q_rs, dq, row0, p.Sq, lane);
+}
+
+// delta and lse log2(e) as one (2 B H, Sq) f32 map at a row pitch of Sp,
+// read in boxes of 64 of a row; reads past Sq give 0
+bool make_stat_map(CUtensorMap* map, float* base, int Sq, int Sp, int rows) {
+  const EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)Sq, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)Sp * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)R, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   cudaError_t err = launch_delta<bf16>(p, D, stream);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = smem_bytes<D>();
+  const int64_t q_ss = (int64_t)p.H * D, k_ss = (int64_t)p.KV * D;
+  CUtensorMap tq, tdo, tk, tv, tstat;
+  if (!make_map<D>(&tq, p.q, p.Sq, p.H, p.B, q_ss, D, q_ss * p.Sq, R) ||
+      !make_map<D>(&tdo, p.dout, p.Sq, p.H, p.B, q_ss, D, q_ss * p.Sq, R) ||
+      !make_map<D>(&tk, p.k, p.Sk, p.KV, p.B, k_ss, D, k_ss * p.Sk, R) ||
+      !make_map<D>(&tv, p.v, p.Sk, p.KV, p.B, k_ss, D, k_ss * p.Sk, R) ||
+      !make_stat_map(&tstat, p.delta, p.Sq, p.Sp, 2 * p.B * p.H))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Cfg<D>::SMEM;
   if ((err = cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  dkdv_kernel<D><<<dim3((p.Sk + KB - 1) / KB, p.KV, p.B), NT, smem, stream>>>(p);
+  const int kv_items = (p.Sk + 2 * R - 1) / (2 * R) * p.KV * p.B;
+  dkdv_kernel<D><<<min(kv_items, sms), NT, smem, stream>>>(tq, tdo, tk, tv, tstat, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_kernel<D><<<dim3((p.Sq + QB - 1) / QB, p.H, p.B), NT, smem, stream>>>(p);
+  const int q_items = (p.Sq + 2 * R - 1) / (2 * R) * p.H * p.B;
+  dq_kernel<D><<<min(q_items, sms), NT, smem, stream>>>(tq, tdo, tk, tv, p);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // the design follows the dtype: bf16 on the tensor cores, f32 on CUDA cores
 cudaError_t launch_d(const BwdParams& p, int dtype, int D, cudaStream_t s) {
   if (dtype == 1) {
-    if (D == 16) return tc::launch<16>(p, s);
-    if (D == 32) return tc::launch<32>(p, s);
-    if (D == 64) return tc::launch<64>(p, s);
-    if (D == 128) return tc::launch<128>(p, s);
+    if (D == 16) return wg::launch<16>(p, s);
+    if (D == 32) return wg::launch<32>(p, s);
+    if (D == 64) return wg::launch<64>(p, s);
+    if (D == 128) return wg::launch<128>(p, s);
   } else if (dtype == 0) {
     if (D == 16) return cc::launch<16>(p, s);
     if (D == 32) return cc::launch<32>(p, s);
@@ -685,15 +969,18 @@ cudaError_t launch_d(const BwdParams& p, int dtype, int D, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every pointer 16-byte aligned); every
-// tensor contiguous; delta is f32 scratch of (B, H, Sq). Returns a
-// cudaError_t (0 = success).
+// tensor contiguous; delta is f32 scratch of 2 B H Sp floats, Sp = Sq
+// rounded up to a multiple of 4. Returns a cudaError_t (0 = success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, int dtype, int B, int Sq, int Sk, int H,
                                    int KV, int D, int causal, int window, int chunk,
                                    float softcap, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const BwdParams p{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV,
+  // bf16 also keeps lse log2(e) beside delta; both rows padded for TMA
+  const int Sp = dtype == 1 ? (Sq + 3) / 4 * 4 : Sq;
+  float* lse2 = dtype == 1 ? delta + (int64_t)B * H * Sp : nullptr;
+  const BwdParams p{q, k, v, o, dout, lse, delta, lse2, dq, dk, dv, B, Sq, Sk, H, KV, Sp,
                     causal, window, chunk, softcap, scale};
   return (int)launch_d(p, dtype, D, static_cast<cudaStream_t>(stream));
 }

@@ -15,7 +15,9 @@ that its products stay true f32 (tensor cores take f32 only as TF32).  TMA
 needs q / k / v to start on a 16-byte boundary with every stride a multiple
 of 16 bytes (``aligned_for_tma``); a bf16 CUDA view that is not raises.  The
 backward's design follows the dtype too (``BWD_DESIGNS``): bf16 on the
-tensor cores (mma.sync, tensors on 16-byte boundaries), f32 on CUDA cores.
+tensor cores (wgmma, tiles loaded by TMA; tensors on 16-byte boundaries),
+f32 on CUDA cores.  ``bwd_items`` and ``persistent_rounds`` mirror the order
+in which the bf16 backward's persistent grid takes its items.
 """
 from __future__ import annotations
 
@@ -39,9 +41,15 @@ _BIG = 1 << 30
 launches = 0      # forward without the LSE (serving)
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
-BWD_DESIGNS = {torch.bfloat16: "mma.sync", torch.float32: "cuda-core f32"}
-# the backward's tiles: D 256 does not fit in a block's shared memory
+BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
+# the backward's head dims: at D 256 the f32 design's tiles do not fit in a
+# block's shared memory, nor the bf16 design's dK / dV accumulators in registers
 BWD_HEAD_DIMS = (16, 32, 64, 128)
+# the bf16 backward's tiles: a consumer warpgroup owns 64 rows, a block two;
+# a dK / dV item is 128 keys stepping over 64 q rows, a dQ item 128 q rows
+# stepping over 64 keys
+BWD_ROWS = 64
+BWD_ITEM = 2 * BWD_ROWS
 
 
 def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, Sk: int,
@@ -75,6 +83,45 @@ def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, 
             and (chunk <= 0 or (qa // chunk == qb // chunk and ka // chunk == kb // chunk
                                 and qa // chunk == ka // chunk)))
     return FULL if all_ else PARTIAL
+
+
+def bwd_items(kind: str, B: int, Sq: int, Sk: int, H: int, KV: int, *,
+              causal: bool) -> list[tuple[int, int, int]]:
+    """The bf16 backward's items in the order its persistent grid hands them
+    out (``item`` in ``dkdv_kernel`` and ``dq_kernel``): for ``"dkdv"``
+    (first key, kv head, batch) of 128-key tiles, first key tiles first (under
+    a causal mask they see the most q rows); for ``"dq"`` (first q row, head,
+    batch) of 128-row tiles, the last q tiles first under a causal mask."""
+    if kind == "dkdv":
+        n_tiles, heads = -(-Sk // BWD_ITEM), KV
+    elif kind == "dq":
+        n_tiles, heads = -(-Sq // BWD_ITEM), H
+    else:
+        raise ValueError(f"kind must be 'dkdv' or 'dq', not {kind!r}")
+    items = []
+    for i in range(n_tiles * heads * B):
+        tile = i // (heads * B)
+        if kind == "dq" and causal:
+            tile = n_tiles - 1 - tile
+        items.append((tile * BWD_ITEM, i % heads, (i // heads) % B))
+    return items
+
+
+def persistent_rounds(n_items: int, n_blocks: int) -> list[list[int]]:
+    """The items each block of a persistent grid of ``n_blocks`` takes
+    (``round_item`` in the flash kernels): round r hands items r * n_blocks
+    onwards to the blocks, in reverse block order on odd rounds."""
+    rounds = []
+    for blk in range(n_blocks):
+        mine, r = [], 0
+        while True:
+            it = r * n_blocks + (n_blocks - 1 - blk if r & 1 else blk)
+            if it >= n_items:
+                break
+            mine.append(it)
+            r += 1
+        rounds.append(mine)
+    return rounds
 
 
 def aligned_for_tma(t: torch.Tensor) -> bool:
@@ -206,7 +253,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"the flash backward kernel takes head dims {BWD_HEAD_DIMS}, not {D}: its f32 "
-            "tiles would not fit in a block's shared memory")
+            "tiles would not fit in a block's shared memory, nor its bf16 dK / dV "
+            "accumulators in registers")
     Sk, KV = k.shape[1], k.shape[2]
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     if q.dtype == torch.bfloat16:
@@ -217,7 +265,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # delta, then (bf16) lse log2(e), each (B, H, Sq rounded up to 4) for TMA
+    delta = torch.empty(2 * B * H * (-(-Sq // 4) * 4), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -435,6 +435,13 @@ BWD_CASES = [
     (2, 40, 4, 2, 16, True, 0, 0, 0.0),       # smoke width, one partial tile
     (1, 96, 2, 1, 32, True, 0, 50, 0.0),      # chunk of 50
     (1, 2048, 32, 8, 128, True, 0, 0, 0.0),   # rsc-llm training, B 1
+    # the bf16 design's tile edges: 128-key / 128-row items, 64-row steps
+    (1, 200, 4, 2, 16, True, 0, 0, 0.0),      # D 16 over two items
+    (1, 300, 4, 4, 32, True, 0, 100, 0.0),    # D 32, chunk of 100
+    (1, 129, 4, 2, 128, True, 0, 0, 0.0),     # one row past a 128 tile
+    (2, 191, 4, 2, 128, True, 0, 0, 0.0),     # 63 rows past one
+    (1, 512, 4, 2, 128, True, 130, 0, 0.0),   # window of 130
+    (1, 512, 4, 2, 128, True, 0, 100, 0.0),   # chunk of 100 at D 128
 ]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -478,6 +485,26 @@ def test_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype
     for a, b in zip(got, want):
         _assert_bwd_close(a, b, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D", fa.BWD_HEAD_DIMS)
+def test_bf16_backward_runs_the_wgmma_design_at_every_head_dim(cuda, D):
+    """The kernels a bf16 backward launches, by name (torch.profiler): the
+    delta pass and the wgmma design's dK / dV and dQ kernels at this D."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert fa.BWD_DESIGNS[torch.bfloat16] == "wgmma+tma"
+    case = (1, 200, 4, 2, D, True, 0, 0, 0.0)
+    q, k, v = _qkv(case, torch.bfloat16, cuda)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    fa.flash_attention_bwd(q, k, v, o, lse, q)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd(q, k, v, o, lse, q)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert f"wg::dkdv_kernel<{D}>" in names and f"wg::dq_kernel<{D}>" in names, names
+    assert "delta_kernel" in names and "cc::" not in names, names
 
 
 def test_backward_kernel_refuses_head_dim_256_and_a_misaligned_bf16_tensor(cuda):

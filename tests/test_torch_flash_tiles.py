@@ -35,10 +35,16 @@ MASKS = [
     (400, 400, False, 60, 96),
     (257, 300, True, 0, 0),
     (300, 257, False, 33, 70),
+    (129, 129, True, 0, 0),      # the backward's card cases: one row past a 128 tile,
+    (191, 191, True, 0, 0),      # 63 rows past one,
+    (512, 512, True, 130, 0),    # a window of 130,
+    (300, 300, True, 0, 100),    # a chunk of 100
 ]
-# (block_q, block_k): the kernels' tiles (f32 64 x 64; bf16 128 x 128 at
-# d_head <= 128, 128 x 64 at 256, each consumer warpgroup's 64 rows) and odd
-# sizes that do not divide the masks' edges
+# (block_q, block_k): the kernels' tiles (f32 64 x 64; bf16 forward 128 x
+# 128 at d_head <= 128, 128 x 64 at 256, each consumer warpgroup's 64 rows;
+# bf16 backward 64 x 128 a dK / dV step, 128 x 64 a dQ step, 64 x 64 a
+# warpgroup's share of either) and odd sizes that do not divide the masks'
+# edges
 TILES = [(64, 64), (128, 128), (128, 64), (64, 128), (64, 32), (48, 80)]
 
 
