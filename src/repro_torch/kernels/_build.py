@@ -111,6 +111,8 @@ def load() -> ctypes.CDLL:
     for fn in (lib.wkv6_fwd, lib.wkv6_chunked_fwd):
         fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
         fn.restype = i32
+    lib.wkv6_bwd.argtypes = [ptr] * 16 + [i32] * 5 + [ptr]
+    lib.wkv6_bwd.restype = i32
     lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 4 + [ptr]
     lib.rglru_fwd.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

@@ -8,8 +8,11 @@ grad is enabled and q, k or v requires grad, through ``FlashAttention``
 shapes run the plain version on the CPU and are not yet ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
 ``wkv6`` and ``rglru`` always go to their kernel wrappers, with or without
-a state.  ``causal_conv1d`` is plain PyTorch, as the reference computes it
-in jnp outside any kernel.
+a state; ``wkv6`` like ``flash_attention``: when grad is enabled and an
+input requires grad, through ``WKV6`` (the forward kernel, and the backward
+kernel in the backward pass), otherwise (serving) through the forward
+wrapper alone.  ``causal_conv1d`` is plain PyTorch, as the reference
+computes it in jnp outside any kernel.
 """
 from __future__ import annotations
 
@@ -69,6 +72,9 @@ def wkv6(
     u: torch.Tensor,  # (H, D)
     state: Optional[torch.Tensor] = None,  # (B, H, D, D) f32, updated in place
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        return k6.WKV6.apply(r, k, v, w, u, state)
     return k6.wkv6(r, k, v, w, u, state)
 
 

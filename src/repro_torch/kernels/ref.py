@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention
 (with the row log-sum-exp and the backward of ``repro.kernels.ops._flash``),
-decode attention, the RWKV-6 WKV recurrence and the RG-LRU recurrence.
+decode attention, the RWKV-6 WKV recurrence (with its VJP, which the
+reference takes by ``jax.grad`` of ``wkv6_ref``) and the RG-LRU recurrence.
 
 They are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They favour clarity over memory: the
@@ -192,6 +193,60 @@ def wkv6_ref(
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, 1) if outs else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def wkv6_bwd_ref(
+    r: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,  # (H, D)
+    state: torch.Tensor | None,  # (B, H, D, D) f32 initial state S_0, or None (zeros)
+    do: torch.Tensor,  # (B, S, H, D) cotangent of the output
+    ds: torch.Tensor | None = None,  # (B, H, D, D) cotangent of the final state, or None (zeros)
+) -> tuple[torch.Tensor, ...]:
+    """The VJP of ``wkv6_ref``, exact sequential form.  With S_t the
+    state before step t and G_t its cotangent (G_T = ds):
+
+      G_t = diag(w_t) G_{t+1} + r_t^T dO_t
+      dr_t[i] = sum_j S_t[i,j] dO_t[j] + u_i k_t[i] (v_t . dO_t)
+      dk_t[i] = sum_j G_{t+1}[i,j] v_t[j] + u_i r_t[i] (v_t . dO_t)
+      dv_t[j] = sum_i k_t[i] G_{t+1}[i,j] + (sum_i r_t[i] u_i k_t[i]) dO_t[j]
+      dw_t[i] = sum_j G_{t+1}[i,j] S_t[i,j]
+      du[h,i] = sum_{b,t} r_t[i] k_t[i] (v_t . dO_t)
+
+    Returns (dr, dk, dv, dw in the inputs' dtypes, du (H, D) f32, G_0 f32).
+    It computes in f64 and rounds once at the end: in f32 the sums over
+    steps and over a row (dw cancels terms ~100 times larger than itself
+    once decays near 1 let the states grow) already differ from the same
+    f32 sums taken in another order by more than 1e-5, so only the exact
+    value is a yardstick for the f32 versions.  Every S_t is kept, so it
+    holds S states of (B, H, D, D) at once."""
+    B, S, H, D = r.shape
+    f64 = torch.float64
+    rf, kf, vf, wf, dof = (x.to(f64) for x in (r, k, v, w, do))
+    uf = u.to(f64)
+    s = (torch.zeros((B, H, D, D), dtype=f64, device=r.device)
+         if state is None else state.to(f64))
+    states = []
+    for t in range(S):
+        states.append(s)
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = torch.zeros((B, H, D, D), dtype=f64, device=r.device) if ds is None else ds.to(f64)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((H, D), dtype=f64, device=r.device)
+    for t in range(S - 1, -1, -1):
+        r_t, k_t, v_t, w_t, do_t = (x[:, t] for x in (rf, kf, vf, wf, dof))
+        vdo = (v_t * do_t).sum(-1, keepdim=True)  # (B, H, 1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", states[t], do_t) + uf * k_t * vdo
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", g, v_t) + uf * r_t * vdo
+        dv[:, t] = (torch.einsum("bhi,bhij->bhj", k_t, g)
+                    + (r_t * uf * k_t).sum(-1, keepdim=True) * do_t)
+        dw[:, t] = (g * states[t]).sum(-1)
+        du += (r_t * k_t * vdo).sum(0)
+        g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.float(), g.float())
 
 
 def rglru_ref(

@@ -13,6 +13,12 @@ the start of r, k, v, w 16-byte aligned; a bf16 CUDA view that is not
 raises), f32 keeps the sequential CUDA-core kernel (``csrc/wkv6.cu``) so
 that its products stay true f32.  ``wkv6_chunked`` is the chunked kernel's
 arithmetic in plain PyTorch, for the tests.
+
+``wkv6_bwd`` wraps the backward kernel (``csrc/wkv6_bwd.cu``, the VJP the
+reference takes by ``jax.grad`` of ``ref.wkv6_ref``; the Pallas kernel has
+none), for bf16 and f32 alike; on CPU tensors it returns
+``ref.wkv6_bwd_ref``.  ``WKV6`` joins the forward and the backward as a
+``torch.autograd.Function``, which ``ops.wkv6`` takes when grad is on.
 """
 from __future__ import annotations
 
@@ -32,6 +38,12 @@ CHUNK = 16  # steps a chunk in csrc/wkv6_chunked.cu
 
 launches = 0  # kernel launches since the last reset; the CPU path does not count
 kernel_launches = {CHUNKED: 0, SEQUENTIAL: 0}  # the same, by kernel
+bwd_launches = 0  # backward kernel launches since the last reset
+# the backward's design, one for both dtypes: f32 on CUDA cores, a forward
+# pass that keeps the state every BWD_CHUNK steps, then two reverse-time
+# scans, one over the state's rows and one over its columns
+BWD_DESIGN = "cuda-core two-scan"
+BWD_CHUNK = 16
 
 
 def _check_state(name: str, s: Optional[torch.Tensor], shape: tuple, device) -> None:
@@ -187,3 +199,71 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
             st = decay * st + kt.transpose(-1, -2) @ vc
     out = torch.cat(outs, 2) if outs else torch.zeros_like(rf)
     return out.transpose(1, 2).to(r.dtype), st
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: Optional[torch.Tensor], do: torch.Tensor,
+             ds: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, ...]:
+    """The VJP of ``wkv6`` at (r, k, v, w, u, state) for the output's
+    cotangent ``do`` (B, S, H, D) in r's dtype and the final state's ``ds``
+    (B, H, D, D) f32 or None (zeros).  ``state`` is the initial state (f32
+    or None for zeros), as it was before the forward updated it.  Returns
+    (dr, dk, dv, dw in r's dtype, du (H, D) f32, the initial state's
+    cotangent f32)."""
+    global bwd_launches
+    _check(r, k, v, w, u, state)
+    if tuple(do.shape) != tuple(r.shape) or do.dtype != r.dtype or do.device != r.device:
+        raise ValueError(f"do must be {r.dtype} {tuple(r.shape)} on {r.device}; got "
+                         f"{do.dtype} {tuple(do.shape)} on {do.device}")
+    B, S, H, D = r.shape
+    _check_state("ds", ds, (B, H, D, D), r.device)
+    if r.device.type == "cpu":
+        return ref.wkv6_bwd_ref(r, k, v, w, u, state, do, ds)
+    if r.device.type != "cuda":
+        raise ValueError(f"unsupported device {r.device}")
+    r, k, v, w, do = (t.contiguous() for t in (r, k, v, w, do))
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du = torch.zeros((H, D), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if r.numel() == 0:
+        return (dr, dk, dv, dw, du,
+                ds0.zero_() if ds is None else ds0.copy_(ds))
+    n_ckpt = -(-S // BWD_CHUNK)
+    ckpt = torch.empty((B, H, n_ckpt, D, D), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    u32 = u.to(torch.float32).contiguous()
+    lib = _build.load()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u32.data_ptr(),
+            None if state is None else state.data_ptr(), do.data_ptr(),
+            None if ds is None else ds.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), ckpt.data_ptr(), du_part.data_ptr(),
+            DTYPES[r.dtype], B, S, H, D, stream)
+    _build.check(lib, err, "wkv6_bwd launch")
+    bwd_launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV6(torch.autograd.Function):
+    """Differentiable WKV-6: ``wkv6`` forward (a given state is updated in
+    place, as serving does, and marked dirty) and ``wkv6_bwd`` backward.
+    The forward keeps a copy of the initial state, which the backward reads
+    after the in-place update has overwritten it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        s0 = None if state is None else state.clone()
+        out, s_out = wkv6(r, k, v, w, u, state)
+        if state is not None:
+            ctx.mark_dirty(state)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return out, s_out
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w, u, s0, do, ds.contiguous())
+        return dr, dk, dv, dw, du.to(u.dtype), (None if s0 is None else ds0)

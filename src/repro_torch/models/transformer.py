@@ -8,8 +8,8 @@ holds them as module parameters.  A ``for`` loop over the stacked layer index
 takes the place of ``lax.scan``.  Global- and local-attention layers (dense
 FFN), RWKV-6 layers and RG-LRU layers are ported for serving; every other
 feature raises ``NotImplementedError`` when the model is built.  Training
-(``loss_fn``) takes the attention layers only: the RWKV-6 and RG-LRU
-kernels have no backward yet.
+(``loss_fn``) takes the attention and RWKV-6 layers: the RG-LRU kernel has
+no backward yet.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ from repro_torch.models.params import ParamDef
 # Parameter definitions
 # ---------------------------------------------------------------------------
 PORTED_KINDS = ("global", "local", "rwkv", "rglru")
-TRAINABLE_KINDS = ("global", "local")
+TRAINABLE_KINDS = ("global", "local", "rwkv")
 # recurrent kinds: (block, zero state); the block updates a given state in place
 RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
              "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}

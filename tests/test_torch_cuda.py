@@ -10,8 +10,10 @@ uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
 reference's own, f32 5e-5, bf16 5e-2; RG-LRU f32 1e-5 (the reference's
 between its kernel and its oracle) and one bf16 ulp for a bf16 output;
 the flash backward f32 5e-5 (the reference's VJP tolerance), bf16 2e-2 plus
-one bf16 ulp of the plain value.  The training tests run the trainer in a
-subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA initialises."""
+one bf16 ulp of the plain value; the WKV-6 backward f32 5e-5 times the
+output's largest magnitude, bf16 one bf16 ulp more.  The training tests run
+the trainer in a subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA
+initialises."""
 import os
 import pathlib
 import subprocess
@@ -171,6 +173,72 @@ def test_wkv6_kernel_matches_plain(cuda, shape, state, dtype):
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=WKV_TOL[dtype])
     np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(), atol=WKV_TOL[dtype])
+
+
+# the WKV-6 backward against its plain version (f64 inside): f32 5e-5 (the
+# reference's WKV-6 tolerance) times the output's largest magnitude, since
+# the gradients sum over every later step; bf16 outputs one bf16 ulp more
+WKV_BWD_TOL = 5e-5
+
+
+@pytest.mark.parametrize("decays", [None, 1e-3, 0.999])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", k6.HEAD_DIMS)
+def test_wkv6_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, D, dtype, decays):
+    """At a ragged S with a state, a final-state cotangent, and decays of the
+    reference test, near 0 and near 1."""
+    r, k, v, w, u, st = _wkv_inputs(2, 77, 4, D, dtype, cuda, state=True)
+    if decays is not None:
+        w = torch.full_like(w, decays)
+    rng = np.random.default_rng(1)
+    do = torch.from_numpy(rng.standard_normal((2, 77, 4, D)).astype(np.float32)).to(cuda, dtype)
+    ds = torch.from_numpy(rng.standard_normal((2, 4, D, D)).astype(np.float32)).to(cuda)
+    args = (r, k, v, w, u, st, do, ds)
+    want = ref.wkv6_bwd_ref(*args)
+    before = k6.bwd_launches
+    got = k6.wkv6_bwd(*args)
+    again = k6.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert k6.bwd_launches == before + 2
+    assert [g.dtype for g in got] == [dtype] * 4 + [torch.float32] * 2
+    for n, (g, wn, g2) in enumerate(zip(got, want, again)):
+        assert torch.equal(g, g2)
+        g, wn = g.float().cpu(), wn.float().cpu()
+        lim = WKV_BWD_TOL * max(1.0, float(wn.abs().max()))
+        if dtype == torch.bfloat16 and n < 4:
+            lim = lim + 2.0 ** -7 * wn.abs()
+        assert bool(((g - wn).abs() <= lim).all()), n
+
+
+def test_rwkv_training_on_card_goes_through_the_kernels(cuda):
+    """Smoke rwkv6-7b's loss and gradients on the card in f32 (the
+    sequential WKV-6 forward twice per layer, the forward and its remat
+    recompute, and the backward once) match the CPU's plain path to 1e-5
+    (loss) and 1e-4 (gradients); bf16 takes the chunked forward."""
+    cfg = smoke_config(get_arch("rwkv6-7b"))
+    params = pmod.materialize(transformer.model_defs(cfg), seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (2, 65)))
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        k6.bwd_launches = 0
+        k6.kernel_launches = dict.fromkeys(k6.kernel_launches, 0)
+        loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(dev)},
+                                      dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append([loss.detach().cpu()] + [g.cpu() for g in grads])
+    assert (k6.kernel_launches[k6.SEQUENTIAL], k6.bwd_launches) == (2 * cfg.n_layers,
+                                                                    cfg.n_layers)
+    assert abs(float(out[0][0] - out[1][0])) <= 1e-5
+    for a, b in zip(out[0][1:], out[1][1:]):
+        assert torch.isfinite(b).all()
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
+    leaves = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    k6.kernel_launches = dict.fromkeys(k6.kernel_launches, 0)
+    loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(cuda)})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert k6.kernel_launches[k6.CHUNKED] == 2 * cfg.n_layers
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_wkv6_updates_the_state_in_place(cuda):
@@ -575,7 +643,7 @@ from repro_torch.models import params as pmod, transformer
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.train_loop import FaultTolerantTrainer, TrainerConfig
-cfg = smoke_config(get_arch("rsc-llm"))
+cfg = smoke_config(get_arch(sys.argv[2] if len(sys.argv) > 2 else "rsc-llm"))
 p0 = {p: torch.empty(d.shape, device="meta") for p, d in pmod.flatten(transformer.model_defs(cfg))}
 leaves = []
 for label, sched in (("clean", {}), ("fault", {10: InjectedFault("gpu_memory_errors")})):
@@ -601,3 +669,16 @@ def test_faulted_training_on_card_ends_bit_identical_to_clean(cuda, tmp_path):
                                 CUBLAS_WORKSPACE_CONFIG=":4096:8"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "identical 37" in r.stdout
+
+
+def test_faulted_rwkv_training_on_card_ends_bit_identical_to_clean(cuda, tmp_path):
+    """The same on smoke rwkv6-7b: the WKV-6 forward and backward kernels
+    are deterministic, so a run that crashes and restores ends on the clean
+    run's bits."""
+    base = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    r = subprocess.run([sys.executable, "-c", FAULTED_VS_CLEAN, str(tmp_path), "rwkv6-7b"],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(base, PYTHONPATH=str(ROOT / "src"),
+                                CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("identical ")

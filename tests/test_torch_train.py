@@ -10,9 +10,12 @@ Function the card trains through (its plain versions here).
 
 Cases: smoke rsc-llm as configured (remat "full", one loss chunk); with
 ``loss_chunk`` 8 (four recomputed chunks) and a loss mask; smoke qwen3-0.6b
-(qk_norm, tied embeddings); and smoke rsc-llm with local layers (window 16).
-The first two are also stepped with ``n_microbatches=2``, and the
-reference's accumulated gradients are saved beside the step.
+(qk_norm, tied embeddings); smoke rsc-llm with local layers (window 16);
+and smoke rwkv6-7b, whose layers train through the ``WKV6`` Function (the
+reference differentiates its ``lax.scan`` oracle).  The first two and
+rwkv6-7b are also stepped with ``n_microbatches=2``
+(tests/test_smoke_archs.py's microbatch check), and the reference's
+accumulated gradients are saved beside the step.
 Tolerances: 1e-5 on the loss and the metrics, 1e-4 on every gradient (two
 layers of f32 matmuls and their backward summed in different orders by two
 frameworks).  After one AdamW step a weight moves by lr (g / (|g| + eps) +
@@ -41,9 +44,10 @@ CASES = {
     "rsc-llm-chunked-masked": ("rsc-llm", {"loss_chunk": 8}, True),
     "qwen3-0.6b": ("qwen3-0.6b", {}, False),
     "rsc-llm-local": ("rsc-llm", {"block_groups": ((("local",), 2),), "window": 16}, False),
+    "rwkv6-7b": ("rwkv6-7b", {}, False),
 }
 # cases also stepped with n_microbatches=2 (a microbatch of one row each)
-MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked")
+MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b")
 B, S = 2, 32
 LR = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
@@ -281,7 +285,7 @@ def test_master_weights_train_and_serving_stays_frozen():
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in serve.parameters())
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_training_recurrent_layers_raises(arch):
     cfg = smoke_config(get_arch(arch))
     params = pmod.materialize(transformer.model_defs(cfg), seed=0)
