@@ -77,7 +77,7 @@
 
 namespace {
 
-constexpr int C = 16;     // steps a chunk: the checkpoint interval (wkv6.BWD_CHUNK)
+constexpr int C = 16;     // steps a chunk: the checkpoint interval (wkv6.CHUNK)
 constexpr int HALF = 8;   // states rebuilt at a time
 constexpr int RG = 16;    // state rows a block of the row kernel
 constexpr int L = 8;      // lanes a row in the row kernel

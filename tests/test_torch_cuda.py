@@ -10,8 +10,8 @@ uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
 reference's own, f32 5e-5, bf16 5e-2; RG-LRU f32 1e-5 (the reference's
 between its kernel and its oracle) and one bf16 ulp for a bf16 output;
 the flash backward f32 5e-5 (the reference's VJP tolerance), bf16 2e-2 plus
-one bf16 ulp of the plain value; the WKV-6 backward f32 5e-5 times the
-output's largest magnitude, bf16 one bf16 ulp more.  The training tests run
+one bf16 ulp of the plain value; the WKV-6 backward (both designs) f32
+5e-5 times the output's largest magnitude, bf16 one bf16 ulp more.  The training tests run
 the trainer in a subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA
 initialises."""
 import os
@@ -210,6 +210,54 @@ def test_wkv6_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, D, dty
         assert bool(((g - wn).abs() <= lim).all()), n
 
 
+@pytest.mark.parametrize("kernel", [k6.BWD_CHUNKED, k6.BWD_TWO_SCAN])
+@pytest.mark.parametrize("decays", [None, 1e-3, 0.999, 0.0, "zero fifth"])
+@pytest.mark.parametrize("shape", [(2, 77, 4, 16), (2, 77, 4, 32), (2, 77, 4, 64),
+                                   (1, 16, 2, 64), (3, 5, 2, 32)])
+def test_wkv6_backward_designs_match_plain_in_bf16(cuda, shape, decays, kernel):
+    """Both backward designs in bf16 (the chunked one is bf16's route) at
+    ragged S, one whole chunk and one short one, with a state and a
+    final-state cotangent; decays of the reference test, near 0, near 1,
+    exactly 0 and exactly 0 in a fifth of the entries; two calls
+    bit-identical, one launch a call of the chosen design."""
+    B, S, H, D = shape
+    r, k, v, w, u, st = _wkv_inputs(B, S, H, D, torch.bfloat16, cuda, state=True)
+    if decays == "zero fifth":
+        w = torch.where(torch.rand(w.shape, device=cuda) < 0.2, 0.0, w.float()).bfloat16()
+    elif decays is not None:
+        w = torch.full_like(w, decays)
+    rng = np.random.default_rng(1)
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    ds = torch.from_numpy(rng.standard_normal((B, H, D, D)).astype(np.float32)).to(cuda)
+    args = (r, k, v, w, u, st, do, ds)
+    want = ref.wkv6_bwd_ref(*args)
+    before = dict(k6.bwd_kernel_launches)
+    got = k6.wkv6_bwd(*args, kernel=kernel)
+    again = k6.wkv6_bwd(*args, kernel=kernel)
+    torch.cuda.synchronize()
+    assert k6.bwd_kernel_launches[kernel] == before[kernel] + 2
+    assert sum(k6.bwd_kernel_launches.values()) == sum(before.values()) + 2
+    for n, (g, wn, g2) in enumerate(zip(got, want, again)):
+        assert torch.equal(g, g2)
+        g, wn = g.float().cpu(), wn.float().cpu()
+        lim = WKV_BWD_TOL * max(1.0, float(wn.abs().max()))
+        if n < 4:
+            lim = lim + 2.0 ** -7 * wn.abs()
+        assert bool(((g - wn).abs() <= lim).all()), n
+
+
+def test_wkv6_chunked_backward_rejects_misaligned_view_and_f32(cuda):
+    r, k, v, w, u, st = _wkv_inputs(1, 33, 2, 16, torch.bfloat16, cuda, state=True)
+    do = torch.randn_like(r)
+    buf = torch.empty(r.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(r.shape).copy_(r)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k6.wkv6_bwd(shifted, k, v, w, u, st, do, kernel=k6.BWD_CHUNKED)
+    f32 = [t.float() for t in (r, k, v, w)]
+    with pytest.raises(ValueError, match="takes bf16"):
+        k6.wkv6_bwd(*f32, u, st, do.float(), kernel=k6.BWD_CHUNKED)
+
+
 def test_rwkv_training_on_card_goes_through_the_kernels(cuda):
     """Smoke rwkv6-7b's loss and gradients on the card in f32 (the
     sequential WKV-6 forward twice per layer, the forward and its remat
@@ -235,9 +283,11 @@ def test_rwkv_training_on_card_goes_through_the_kernels(cuda):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
     leaves = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
     k6.kernel_launches = dict.fromkeys(k6.kernel_launches, 0)
+    k6.bwd_kernel_launches = dict.fromkeys(k6.bwd_kernel_launches, 0)
     loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(cuda)})
     grads = torch.autograd.grad(loss, list(leaves.values()))
     assert k6.kernel_launches[k6.CHUNKED] == 2 * cfg.n_layers
+    assert k6.bwd_kernel_launches == {k6.BWD_CHUNKED: cfg.n_layers, k6.BWD_TWO_SCAN: 0}
     assert all(torch.isfinite(g).all() for g in grads)
 
 
