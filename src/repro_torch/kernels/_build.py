@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_bwd.argtypes = (
-        [ptr] * 10 + [i32] * 7 + [i32] * 3 + [ctypes.c_float, ctypes.c_float, ptr])
+        [ptr] * 11 + [i32] * 8 + [i32] * 3 + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_bwd.restype = i32
     for fn in (lib.wkv6_fwd, lib.wkv6_chunked_fwd):
         fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]
@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
     lib.wkv6_bwd_chunked.restype = i32
     lib.rglru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 4 + [ptr]
     lib.rglru_fwd.restype = i32
+    lib.rglru_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+    lib.rglru_bwd.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -30,16 +30,27 @@
 // What bounds it on an H100: the function needs 5 products of 2 B H S^2 D
 // (halved under a causal mask); at rsc-llm training (B 2, S 2048, H 32,
 // KV 8, D 128) that is 1.72e11 FLOP, 0.174 ms at the 989 TFLOP/s bf16
-// tensor-core peak, against ~0.1 ms for its bytes: operations bound. Both
-// designs do 7 products (S and dP twice), so 0.243 ms is this design's
-// floor. Their times are in PERF.md.
+// tensor-core peak, against ~0.1 ms for its bytes: operations bound; the
+// same at recurrentgemma-9b training (B 2, S 2048, H 16, KV 1, D 256).
+// Both designs do 7 products (S and dP twice), so 0.243 ms is this
+// design's floor; at D 256 the bf16 design does 9 (S and dP once more for
+// the second half of D). Their times are in PERF.md.
 //
 // bf16 -- wgmma on the tensor cores, tiles fed by TMA (namespace wg). The
 //   dkdv and dq kernels are persistent grids of one block per SM with the
 //   heaviest causal items first, as the forward's; a block is three
 //   warpgroups: one thread of the third fills a ring of mbarrier-guarded
 //   stages by TMA and gives its registers to the two consumer warpgroups
-//   (setmaxnreg 40 / 232), which own 64 rows each.
+//   (setmaxnreg 40 / 232), which own 64 rows each. At D 256 (Cfg) a block
+//   has one consumer warpgroup and a 2-stage ring, items are 64 rows, and
+//   a dK / dV item takes half of D: S^T and dP^T still contract over all of
+//   D, while dK and dV keep 2 x 64 f32 a thread, as at D 128 (all of D
+//   would take 2 x 128, more than the registers). Under MQA 64-key items
+//   are few (128 at recurrentgemma-9b training) and as uneven as the causal
+//   mask, so an item also takes only a group of the kv head's query heads
+//   (the wrapper's bwd_split, 4 groups there: 512 items, 256 steps on every
+//   SM); the groups' f32 partial sums go to a scratch and split_sum_kernel
+//   adds them in a fixed order.
 //   dkdv: an item is (b, kv head, 128-key tile); K and V stay in shared
 //     memory, Q, dO and the rows' delta and lse log2(e) stream through the
 //     ring, 64 q rows a stage. S^T = K Q^T and dP^T = V dO^T are wgmma
@@ -60,7 +71,8 @@
 //   loops and masks through per-row (dq) or per-key (dkdv) intervals, as the
 //   forward does: with tanhf and attends() inside the loop both kernels ran
 //   about 3x slower (PERF.md). Shared memory at D 128: 64 KB resident + 3
-//   stages x 32.5 KB. Left on the table (PERF.md): the S^T / dP^T products
+//   stages x 32.5 KB; at D 256: 64 KB + 2 x 64.5 KB. Left on the table
+//   (PERF.md): the S^T / dP^T products
 //   read both operands from shared memory at n = 64, the SM's whole 128 B a
 //   cycle; overlapping a warpgroup's element-wise work with its own products
 //   (split waits) spilled and was slower, turn-taking between the
@@ -68,12 +80,11 @@
 //   dO as register A operands gained 3% with a spill.
 
 // f32 -- CUDA-core FMA (namespace cc), true f32 products for the 5e-5
-//   checks (tensor cores take f32 only as TF32). 256 threads as 16 x 16; a thread owns
-//   a 4 x 4 patch of each 64 x 64 score tile and 4 rows x D / 16 columns of
-//   its output; tiles staged in shared memory as f32 (rows padded by one
-//   float): 149 KB at D 128. D 256 would need 280 KB in this layout, and
-//   the bf16 design's dK and dV accumulators (2 x 128 f32 a thread) would
-//   not fit in registers, so both take D <= 128.
+//   checks (tensor cores take f32 only as TF32). 256 threads as 16 x 16; a
+//   thread owns a 4 x 4 patch of each 64 x 64 score tile and 4 rows x D / 16
+//   columns of its output; tiles staged in shared memory as f32 (rows padded
+//   by one float): 149 KB at D 128. At D 256 64-row tiles would need 280 KB,
+//   so the tiles are 32 x 32 (2 x 2 patches, 136 KB).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,6 +109,8 @@ struct BwdParams {
   void* dq;          // like q
   void* dk;          // like k
   void* dv;          // like v
+  float* part;       // bf16 with n_split > 1: [dk, dv][n_split][B, Sk, KV, D] f32 partial sums
+  int n_split;       // head groups a bf16 dK / dV item sums over: 1, or a divisor of H / KV
   int B, Sq, Sk, H, KV;
   int Sp;  // the row pitch of delta and lse2: Sq (f32), Sq rounded up to 4 (bf16, for TMA)
   int causal, window, chunk;
@@ -171,61 +184,72 @@ __device__ __forceinline__ float prob_and_grad(float qk, float& dp, float lse, f
 
 namespace cc {
 
-constexpr int BQ = 64;   // q rows a tile
-constexpr int BK = 64;   // keys a tile
 constexpr int NT = 256;  // threads: 16 x 16
-constexpr int PS = BK + 1;  // padded row stride of the score tile
 
+// Score tiles of T q rows by T keys: 64 up to D 128, 32 at D 256, where
+// 64-row tiles would need 280 KB of shared memory. A thread owns a P x P
+// patch of a score tile.
+template <int D>
+struct Tile {
+  static constexpr int T = D > 128 ? 32 : 64;
+  static constexpr int P = T / 16;
+  static constexpr int PS = T + 1;  // padded row stride of the score tile
+};
+
+// K, V, Q and dO tiles (rows padded by one float), the score tile, and a
+// tile's lse and delta: 149 KB at D 128, 136 KB at D 256
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * PS + 2 * BQ);
+  constexpr int T = Tile<D>::T;
+  return sizeof(float) * (size_t)(4 * T * (D + 1) + T * Tile<D>::PS + 2 * T);
 }
 
-// rows start .. start + 63 of a (rows, D) slab whose rows are row_stride
+// rows start .. start + T - 1 of a (rows, D) slab whose rows are row_stride
 // elements apart, into dst (row stride D + 1); rows past limit are 0
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row_stride,
                                           int start, int limit) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < Tile<D>::T * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int gr = start + r;
     dst[r * (D + 1) + c] = gr < limit ? src[(int64_t)gr * row_stride + c] : 0.f;
   }
 }
 
-// s[i][j] = sum_d a[ty*4+i][d] * b[tx+16j][d] over two staged tiles
+// s[i][j] = sum_d a[ty*P+i][d] * b[tx+16j][d] over two staged tiles
 template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const float* b,
-                                         int ty, int tx) {
-  constexpr int LD = D + 1;
+__device__ __forceinline__ void tile_dot(float (&s)[Tile<D>::P][Tile<D>::P], const float* a,
+                                         const float* b, int ty, int tx) {
+  constexpr int LD = D + 1, P = Tile<D>::P;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < P; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
+    float av[P], bv[P];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * LD + d];
+    for (int i = 0; i < P; ++i) av[i] = a[(ty * P + i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < P; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < P; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
 // From q.k (s) and dO.v (dp) of a tile: s becomes P and dp becomes dS.
 // sL / sDel hold the tile's lse and delta by q row.
-__device__ __forceinline__ void probs_and_grads(float (&s)[4][4], float (&dp)[4][4],
+template <int P>
+__device__ __forceinline__ void probs_and_grads(float (&s)[P][P], float (&dp)[P][P],
                                                 const float* sL, const float* sDel, int q_start,
                                                 int k_start, int ty, int tx, const BwdParams& p) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, qi = q_start + r;
+  for (int i = 0; i < P; ++i) {
+    const int r = ty * P + i, qi = q_start + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < P; ++j) {
       const bool keep = qi < p.Sq && attends(qi, k_start + tx + 16 * j, p);
       s[i][j] = prob_and_grad(s[i][j], dp[i][j], sL[r], sDel[r], keep, p);
     }
@@ -234,18 +258,18 @@ __device__ __forceinline__ void probs_and_grads(float (&s)[4][4], float (&dp)[4]
 
 template <int D>
 __global__ void __launch_bounds__(NT) dkdv_kernel(const BwdParams p) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, T = Tile<D>::T, P = Tile<D>::P, PS = Tile<D>::PS;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sdO = sQ + BQ * LD;
-  float* sP = sdO + BQ * LD;  // P, then dS
-  float* sL = sP + BQ * PS;
-  float* sDel = sL + BQ;
+  float* sV = sK + T * LD;
+  float* sQ = sV + T * LD;
+  float* sdO = sQ + T * LD;
+  float* sP = sdO + T * LD;  // P, then dS
+  float* sL = sP + T * PS;
+  float* sDel = sL + T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k_start = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
+  const int k_start = blockIdx.x * T, kvh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.KV;
   const int64_t kv_rs = (int64_t)p.KV * D, q_rs = (int64_t)p.H * D;
 
@@ -254,79 +278,110 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(const BwdParams p) {
   load_tile<D>(sV, static_cast<const float*>(p.v) + ((int64_t)b * p.Sk * p.KV + kvh) * D, kv_rs,
                   k_start, p.Sk);
 
-  float dk[4][DC], dv[4][DC];
+  // dK and dV are summed in three levels: a tile's T q rows (acc), a head's
+  // tiles (hk, hv), the group's heads (dk, dv), so that f32 rounding grows
+  // with the levels' lengths, not with their product (under MQA at D 256 a
+  // key sums 16 heads x 2048 rows)
+  float dk[P][DC], dv[P][DC], hk[P][DC], hv[P][DC], acc[P][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  const int n_qt = (p.Sq + T - 1) / T;
   for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) hk[i][c] = hv[i][c] = 0.f;
     const int h = kvh * G + g;
     const int64_t head = ((int64_t)b * p.Sq * p.H + h) * D;
     const float* lse = p.lse + ((int64_t)b * p.H + h) * p.Sq;
     const float* delta = p.delta + ((int64_t)b * p.H + h) * p.Sq;
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int q_start = qt * BQ;
-      if (tile_class(q_start, BQ, k_start, BK, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
+      const int q_start = qt * T;
+      if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
         continue;  // uniform over the block
       __syncthreads();  // the last tile's readers of sQ / sdO / sP are done
       load_tile<D>(sQ, static_cast<const float*>(p.q) + head, q_rs, q_start, p.Sq);
       load_tile<D>(sdO, static_cast<const float*>(p.dout) + head, q_rs, q_start, p.Sq);
-      for (int r = tid; r < BQ; r += NT) {
+      for (int r = tid; r < T; r += NT) {
         const int qi = q_start + r;
         sL[r] = qi < p.Sq ? lse[qi] : 0.f;
         sDel[r] = qi < p.Sq ? delta[qi] : 0.f;
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];  // rows: q, columns: keys
+      float s[P][P], dp[P][P];  // rows: q, columns: keys
       tile_dot<D>(s, sQ, sK, ty, tx);
       tile_dot<D>(dp, sdO, sV, ty, tx);
-      probs_and_grads(s, dp, sL, sDel, q_start, k_start, ty, tx, p);
+      probs_and_grads<P>(s, dp, sL, sDel, q_start, k_start, ty, tx, p);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < P; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * PS + tx + 16 * j] = s[i][j];
+        for (int j = 0; j < P; ++j) sP[(ty * P + i) * PS + tx + 16 * j] = s[i][j];
       __syncthreads();
-      // dV[key][d] += sum_q P[q][key] dO[q][d]; this thread: keys ty*4+i, d tx+16c
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4];
+      // dV[key][d] += sum_q P[q][key] dO[q][d]; this thread: keys ty*P+i, d tx+16c
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = sP[qq * PS + ty * 4 + i];
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+      for (int qq = 0; qq < T; ++qq) {
+        float pv[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) pv[i] = sP[qq * PS + ty * P + i];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           const float x = sdO[qq * LD + tx + 16 * c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dv[i][c] = fmaf(pv[i], x, dv[i][c]);
+          for (int i = 0; i < P; ++i) acc[i][c] = fmaf(pv[i], x, acc[i][c]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) hv[i][c] += acc[i][c];
       __syncthreads();  // P is read no more
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < P; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * PS + tx + 16 * j] = dp[i][j];
+        for (int j = 0; j < P; ++j) sP[(ty * P + i) * PS + tx + 16 * j] = dp[i][j];
       __syncthreads();
       // dK[key][d] += sum_q dS[q][key] Q[q][d]
-      for (int qq = 0; qq < BQ; ++qq) {
-        float ds[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ds[i] = sP[qq * PS + ty * 4 + i];
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+      for (int qq = 0; qq < T; ++qq) {
+        float ds[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) ds[i] = sP[qq * PS + ty * P + i];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           const float x = sQ[qq * LD + tx + 16 * c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dk[i][c] = fmaf(ds[i], x, dk[i][c]);
+          for (int i = 0; i < P; ++i) acc[i][c] = fmaf(ds[i], x, acc[i][c]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) hk[i][c] += acc[i][c];
     }
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        dk[i][c] += hk[i][c];
+        dv[i][c] += hv[i][c];
+      }
   }
 
   float* dk_out = static_cast<float*>(p.dk) + ((int64_t)b * p.Sk * p.KV + kvh) * D;
   float* dv_out = static_cast<float*>(p.dv) + ((int64_t)b * p.Sk * p.KV + kvh) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k_start + ty * 4 + i;
+  for (int i = 0; i < P; ++i) {
+    const int kj = k_start + ty * P + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
@@ -338,18 +393,18 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(const BwdParams p) {
 
 template <int D>
 __global__ void __launch_bounds__(NT) dq_kernel(const BwdParams p) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, T = Tile<D>::T, P = Tile<D>::P, PS = Tile<D>::PS;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sdO = sQ + BQ * LD;
-  float* sK = sdO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;  // dS
-  float* sL = sS + BQ * PS;
-  float* sDel = sL + BQ;
+  float* sdO = sQ + T * LD;
+  float* sK = sdO + T * LD;
+  float* sV = sK + T * LD;
+  float* sS = sV + T * LD;  // dS
+  float* sL = sS + T * PS;
+  float* sDel = sL + T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q_start = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q_start = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int64_t kv_rs = (int64_t)p.KV * D, q_rs = (int64_t)p.H * D;
   const int64_t head = ((int64_t)b * p.Sq * p.H + h) * D;
@@ -359,55 +414,55 @@ __global__ void __launch_bounds__(NT) dq_kernel(const BwdParams p) {
   load_tile<D>(sdO, static_cast<const float*>(p.dout) + head, q_rs, q_start, p.Sq);
   const float* lse = p.lse + ((int64_t)b * p.H + h) * p.Sq;
   const float* delta = p.delta + ((int64_t)b * p.H + h) * p.Sq;
-  for (int r = tid; r < BQ; r += NT) {
+  for (int r = tid; r < T; r += NT) {
     const int qi = q_start + r;
     sL[r] = qi < p.Sq ? lse[qi] : 0.f;
     sDel[r] = qi < p.Sq ? delta[qi] : 0.f;
   }
 
-  float dq[4][DC];
+  float dq[P][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
 
-  const int n_kt = (p.Sk + BK - 1) / BK;
+  const int n_kt = (p.Sk + T - 1) / T;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k_start = kt * BK;
-    if (tile_class(q_start, BQ, k_start, BK, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
+    const int k_start = kt * T;
+    if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
       continue;  // uniform over the block
     __syncthreads();  // the last tile's readers of sK / sV / sS are done
     load_tile<D>(sK, static_cast<const float*>(p.k) + kv_head, kv_rs, k_start, p.Sk);
     load_tile<D>(sV, static_cast<const float*>(p.v) + kv_head, kv_rs, k_start, p.Sk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[P][P], dp[P][P];
     tile_dot<D>(s, sQ, sK, ty, tx);
     tile_dot<D>(dp, sdO, sV, ty, tx);
-    probs_and_grads(s, dp, sL, sDel, q_start, k_start, ty, tx, p);
+    probs_and_grads<P>(s, dp, sL, sDel, q_start, k_start, ty, tx, p);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sS[(ty * 4 + i) * PS + tx + 16 * j] = dp[i][j];
+      for (int j = 0; j < P; ++j) sS[(ty * P + i) * PS + tx + 16 * j] = dp[i][j];
     __syncthreads();
-    // dQ[q][d] += sum_key dS[q][key] K[key][d]; this thread: q rows ty*4+i, d tx+16c
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
+    // dQ[q][d] += sum_key dS[q][key] K[key][d]; this thread: q rows ty*P+i, d tx+16c
+    for (int kk = 0; kk < T; ++kk) {
+      float ds[P];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty * 4 + i) * PS + kk];
+      for (int i = 0; i < P; ++i) ds[i] = sS[(ty * P + i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float x = sK[kk * LD + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(ds[i], x, dq[i][c]);
+        for (int i = 0; i < P; ++i) dq[i][c] = fmaf(ds[i], x, dq[i][c]);
       }
     }
   }
 
   float* dq_out = static_cast<float*>(p.dq) + head;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q_start + ty * 4 + i;
+  for (int i = 0; i < P; ++i) {
+    const int qi = q_start + ty * P + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq_out[qi * q_rs + tx + 16 * c] = dq[i][c];
@@ -419,15 +474,16 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   cudaError_t err = launch_delta<float>(p, D, stream);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = smem_bytes<D>();
+  constexpr int T = Tile<D>::T;
   if ((err = cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return err;
   if ((err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return err;
-  dkdv_kernel<D><<<dim3((p.Sk + BK - 1) / BK, p.KV, p.B), NT, smem, stream>>>(p);
+  dkdv_kernel<D><<<dim3((p.Sk + T - 1) / T, p.KV, p.B), NT, smem, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_kernel<D><<<dim3((p.Sq + BQ - 1) / BQ, p.H, p.B), NT, smem, stream>>>(p);
+  dq_kernel<D><<<dim3((p.Sq + T - 1) / T, p.H, p.B), NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -440,19 +496,27 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
 namespace wg {
 
 using bf16 = __nv_bfloat16;
-constexpr int NT = 384;    // 2 consumer warpgroups + 1 producer warpgroup
-constexpr int R = 64;      // rows a consumer warpgroup owns; rows a streamed tile
-constexpr int STAGES = 3;  // ring depth
+constexpr int R = 64;  // rows a consumer warpgroup owns; rows a streamed tile
 
+// Up to D 128 a block has two consumer warpgroups and a 3-stage ring, and a
+// dK / dV item takes all of D. At D 256 a 64-row tile is 32 KB, so a block
+// has one consumer warpgroup and a 2-stage ring, and a dK / dV item takes
+// half of D: S^T and dP^T still contract over all of D, but dK and dV keep
+// 2 x 64 f32 a thread, as at D 128.
 template <int D>
 struct Cfg {
   static constexpr int W = Swizzle<D>::W, NB = D / W, ROW = W * 2;
   static constexpr int TILE = R * D * 2;  // bytes of a 64-row bf16 tile
   static constexpr int STAT = 2 * R * 4;  // a dK / dV stage's delta and lse log2(e) rows
+  static constexpr int NC = D <= 128 ? 2 : 1;      // consumer warpgroups
+  static constexpr int NT = 128 * (NC + 1);        // and one producer warpgroup
+  static constexpr int STAGES = D <= 128 ? 3 : 2;  // ring depth
+  static constexpr int DO = D <= 128 ? D : D / 2;  // dK / dV columns an item
+  static constexpr int PARTS = D / DO;
   // two resident tiles for each consumer warpgroup, two streamed tiles (and
   // in dK / dV their rows' statistics) a stage; 1 KB alignment and the
-  // barriers on top. D 128: 64 KB + 3 x 32.5 KB
-  static constexpr size_t SMEM = 4 * TILE + STAGES * (2 * TILE + STAT) + 1024 + 128;
+  // barriers on top. D 128: 64 KB + 3 x 32.5 KB; D 256: 64 KB + 2 x 64.5 KB
+  static constexpr size_t SMEM = 2 * NC * TILE + STAGES * (2 * TILE + STAT) + 1024 + 128;
 };
 
 // Round r of a persistent grid hands items r * gridDim.x onwards to the
@@ -514,39 +578,46 @@ __device__ __forceinline__ void q_range(int kj, const BwdParams& p, int& lo, int
   }
 }
 
+__device__ __forceinline__ void store2(bf16* at, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* at, float a, float b) {
+  *reinterpret_cast<float2*>(at) = make_float2(a, b);
+}
+
 // a (64 x N) accumulator's rows e < 2 ? r0 : r1, columns 8 n + 2 t + (e & 1),
-// stored as bf16 to rows of out (rs elements apart) that are < limit
-template <int N>
-__device__ __forceinline__ void store_rows(bf16* out, int64_t rs, const float (&acc)[N / 2],
+// stored (as bf16, or f32 partial sums) to rows of out (rs elements apart)
+// that are < limit
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(T* out, int64_t rs, const float (&acc)[N / 2],
                                            int r0, int r1, int limit, int t) {
 #pragma unroll
   for (int n = 0; n < N / 8; ++n) {
-    if (r0 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(out + r0 * rs + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
-    if (r1 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(out + r1 * rs + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+    if (r0 < limit) store2(out + r0 * rs + 8 * n + 2 * t, acc[4 * n], acc[4 * n + 1]);
+    if (r1 < limit) store2(out + r1 * rs + 8 * n + 2 * t, acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// dK and dV of 128 keys of one kv head; consumer warpgroup wg owns keys
+// dK and dV of NC x 64 keys of one kv head, columns part DO .. part DO +
+// DO - 1, summed over the item's heads of the group (all G, or G / n_split
+// with f32 partial sums per head group); consumer warpgroup wg owns keys
 // 64 wg .. 64 wg + 63. K and V stay in shared memory; Q, dO and their rows'
-// delta and lse stream through the ring, 64 q rows a stage, over the G
-// heads of the group and the q tiles that tile_class does not skip.
+// delta and lse stream through the ring, 64 q rows a stage, over the item's
+// heads and the q tiles that tile_class does not skip.
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Cfg<D>::NT, 1)
     dkdv_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tdo,
                 __grid_constant__ const CUtensorMap tk, __grid_constant__ const CUtensorMap tv,
                 __grid_constant__ const CUtensorMap tstat, const BwdParams p) {
   using C = Cfg<D>;
   constexpr int W = C::W, NB = C::NB, ROW = C::ROW, TILE = C::TILE, STAT = C::STAT;
+  constexpr int NC = C::NC, STAGES = C::STAGES, DO = C::DO, PARTS = C::PARTS;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sK = (raw + 1023) & ~1023u;    // [2 warpgroups][NB][64][W]
-  const uint32_t sV = sK + 2 * TILE;            // [2 warpgroups][NB][64][W]
-  const uint32_t sQ = sV + 2 * TILE;            // [STAGES][NB][64][W]
+  const uint32_t sK = (raw + 1023) & ~1023u;    // [NC warpgroups][NB][64][W]
+  const uint32_t sV = sK + NC * TILE;           // [NC warpgroups][NB][64][W]
+  const uint32_t sQ = sV + NC * TILE;           // [STAGES][NB][64][W]
   const uint32_t sdO = sQ + STAGES * TILE;      // [STAGES][NB][64][W]
   const uint32_t sStat = sdO + STAGES * TILE;   // [STAGES][delta, lse log2(e)][64] f32
   const uint32_t bars = sStat + STAGES * STAT;  // kv full / empty, then per stage full, empty
@@ -555,22 +626,26 @@ __global__ void __launch_bounds__(NT, 1)
   auto empty = [&](int s) { return bars + 8 * (2 + STAGES + s); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = p.H / p.KV;
+  const int G = p.H / p.KV, Gs = G / p.n_split;  // heads of the group, of an item
   const int n_qt = (p.Sq + R - 1) / R;
-  const int n_steps = G * n_qt;  // (head of the group, q tile) pairs, head-major
-  const int n_items = (p.Sk + 2 * R - 1) / (2 * R) * p.KV * p.B;
-  // items are (key tile, kv head, batch); under a causal mask the first key
-  // tiles see the most q rows, so they come first
-  auto item = [&](int i, int& k_start, int& kvh, int& b) {
-    k_start = i / (p.KV * p.B) * 2 * R;
-    kvh = i % p.KV;
-    b = (i / p.KV) % p.B;
+  const int n_steps = Gs * n_qt;  // (head of the item, q tile) pairs, head-major
+  const int per_tile = p.KV * p.B * PARTS * p.n_split;  // items a key tile
+  const int n_items = (p.Sk + NC * R - 1) / (NC * R) * per_tile;
+  // items are (key tile, kv head, batch, part of D, head group); under a
+  // causal mask the first key tiles see the most q rows, so they come first
+  auto item = [&](int i, int& k_start, int& kvh, int& b, int& part, int& hg) {
+    k_start = i / per_tile * NC * R;
+    const int r = i % per_tile;
+    kvh = r % p.KV;
+    b = r / p.KV % p.B;
+    part = r / (p.KV * p.B) % PARTS;
+    hg = r / (p.KV * p.B * PARTS);
   };
   // an item's steps in order, skipping the q tiles that none of its keys
-  // attends; the producer and both consumers walk the same sequence
+  // attends; the producer and every consumer walk the same sequence
   auto next_step = [&](int k_start, int j) {
     for (++j; j < n_steps; ++j)
-      if (tile_class(j % n_qt * R, R, k_start, 2 * R, p.Sq, p.Sk, p.causal, p.window,
+      if (tile_class(j % n_qt * R, R, k_start, NC * R, p.Sq, p.Sk, p.causal, p.window,
                      p.chunk) != SKIP)
         break;
     return j;
@@ -578,31 +653,31 @@ __global__ void __launch_bounds__(NT, 1)
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
-    mbar_init(kv_empty, 256);  // every consumer thread is done with an item's K and V
+    mbar_init(kv_empty, 128 * NC);  // every consumer thread is done with an item's K and V
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 256);  // every consumer thread releases a stage
+      mbar_init(empty(s), 128 * NC);  // every consumer thread releases a stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 8) {
+  if (warp >= 4 * NC) {
     // producer: one thread keeps the ring full, running into the next item
     // while the consumers finish the last
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (warp == 8 && lane == 0) {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * NC && lane == 0) {
       int stage = 0, phase = 0, kv_phase = 0;
       for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
-        int k_start, kvh, b;
-        item(it, k_start, kvh, b);
+        int k_start, kvh, b, part, hg;
+        item(it, k_start, kvh, b, part, hg);
         // K and V wait until the consumers are done with the last item's;
         // the item's first q tile goes ahead of them
         auto load_kv = [&]() {
           mbar_wait(kv_empty, kv_phase ^ 1);
           kv_phase ^= 1;
-          mbar_expect_tx(kv_full, 4 * TILE);
-          for (int w = 0; w < 2; ++w)
+          mbar_expect_tx(kv_full, 2 * NC * TILE);
+          for (int w = 0; w < NC; ++w)
             for (int c = 0; c < NB; ++c) {
               tma_load(sK + w * TILE + c * R * ROW, &tk, kv_full, c * W, k_start + R * w, kvh, b);
               tma_load(sV + w * TILE + c * R * ROW, &tv, kv_full, c * W, k_start + R * w, kvh, b);
@@ -610,7 +685,7 @@ __global__ void __launch_bounds__(NT, 1)
         };
         bool kv_loaded = false;
         for (int j = next_step(k_start, -1); j < n_steps; j = next_step(k_start, j)) {
-          const int h = kvh * G + j / n_qt, q_start = j % n_qt * R;
+          const int h = kvh * G + hg * Gs + j / n_qt, q_start = j % n_qt * R;
           mbar_wait(empty(stage), phase ^ 1);
           mbar_expect_tx(full(stage), 2 * TILE + STAT);
           for (int c = 0; c < NB; ++c) {
@@ -632,26 +707,26 @@ __global__ void __launch_bounds__(NT, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
     const float* stat = reinterpret_cast<const float*>(smem_raw + (sStat - raw));
     const uint32_t k_tile = sK + wg * TILE, v_tile = sV + wg * TILE;
     // s, dp: S^T and dP^T, then P^T and dS^T; element 4 n + e is key e < 2 ?
     // kj0 : kj1, q row 8 n + 2 t + (e & 1) of the step's tile. dk, dv:
-    // the same keys, column 8 n + 2 t + (e & 1)
-    float dk[D / 2], dv[D / 2], s[R / 2], dp[R / 2];
+    // the same keys, column part DO + 8 n + 2 t + (e & 1)
+    float dk[DO / 2], dv[DO / 2], s[R / 2], dp[R / 2];
     uint32_t pa[R / 16][4], da[R / 16][4];  // P^T and dS^T as A operands, bf16 pairs
     int stage = 0, phase = 0, kv_phase = 0;  // the ring runs on across items
     for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
-      int k_start, kvh, b;
-      item(it, k_start, kvh, b);
+      int k_start, kvh, b, part, hg;
+      item(it, k_start, kvh, b, part, hg);
       const int key0 = k_start + R * wg;  // this warpgroup's first key
       const int kj0 = key0 + 16 * (warp & 3) + g, kj1 = kj0 + 8;
       int lo0, hi0, lo1, hi1;  // the q rows that attend keys kj0 and kj1: an interval for every mask
       q_range(kj0, p, lo0, hi0);
       q_range(kj1, p, lo1, hi1);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
       mbar_wait(kv_full, kv_phase);
       kv_phase ^= 1;
       for (int j = next_step(k_start, -1); j < n_steps; j = next_step(k_start, j)) {
@@ -698,16 +773,18 @@ __global__ void __launch_bounds__(NT, 1)
           }
           acc_to_a<R>(pa, s);
           acc_to_a<R>(da, dp);
-          // dV += P^T dO and dK += dS^T Q: dO and Q are N-major (D
-          // contiguous), so B is read transposed; 16 q rows a step are two
-          // 8-row groups (SBO), the D blocks are LBO apart
+          // dV += P^T dO and dK += dS^T Q over the item's DO columns: dO
+          // and Q are N-major (D contiguous), so B is read transposed; 16 q
+          // rows a step are two 8-row groups (SBO), the D blocks are LBO
+          // apart, and the item's columns start DO / W blocks in
+          const uint32_t cols = part * (DO / W) * R * ROW;
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < R / 16; ++kk)
-            Wgmma<D>::rs(dv, pa[kk], desc<D>(do_tile + kk * 16 * ROW, R * ROW, 8 * ROW));
+            Wgmma<DO>::rs(dv, pa[kk], desc<D>(do_tile + cols + kk * 16 * ROW, R * ROW, 8 * ROW));
 #pragma unroll
           for (int kk = 0; kk < R / 16; ++kk)
-            Wgmma<D>::rs(dk, da[kk], desc<D>(q_tile + kk * 16 * ROW, R * ROW, 8 * ROW));
+            Wgmma<DO>::rs(dk, da[kk], desc<D>(q_tile + cols + kk * 16 * ROW, R * ROW, 8 * ROW));
           wgmma_commit();
           wgmma_wait<0>();
           fence_operands(dv);
@@ -720,28 +797,36 @@ __global__ void __launch_bounds__(NT, 1)
         }
       }
       mbar_arrive(kv_empty);  // K and V are read no more: the next item's may load
-      const int64_t rs = (int64_t)p.KV * D, head = ((int64_t)b * p.Sk * p.KV + kvh) * D;
-      store_rows<D>(static_cast<bf16*>(p.dk) + head, rs, dk, kj0, kj1, p.Sk, t);
-      store_rows<D>(static_cast<bf16*>(p.dv) + head, rs, dv, kj0, kj1, p.Sk, t);
+      const int64_t rs = (int64_t)p.KV * D;
+      const int64_t head = ((int64_t)b * p.Sk * p.KV + kvh) * D + part * DO;
+      if (p.n_split == 1) {
+        store_rows<DO>(static_cast<bf16*>(p.dk) + head, rs, dk, kj0, kj1, p.Sk, t);
+        store_rows<DO>(static_cast<bf16*>(p.dv) + head, rs, dv, kj0, kj1, p.Sk, t);
+      } else {  // the head group's partial sums; split_sum_kernel adds them up
+        const int64_t n = (int64_t)p.B * p.Sk * p.KV * D;
+        store_rows<DO>(p.part + hg * n + head, rs, dk, kj0, kj1, p.Sk, t);
+        store_rows<DO>(p.part + (p.n_split + hg) * n + head, rs, dv, kj0, kj1, p.Sk, t);
+      }
     }
   }
 }
 
-// dQ of 128 q rows of one head; consumer warpgroup wg owns rows 64 wg ..
-// 64 wg + 63. Q and dO stay in shared memory; K and V stream through the
+// dQ of NC x 64 q rows of one head; consumer warpgroup wg owns rows 64 wg
+// .. 64 wg + 63. Q and dO stay in shared memory; K and V stream through the
 // ring, 64 keys a stage, over the key tiles that tile_class does not skip.
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Cfg<D>::NT, 1)
     dq_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tdo,
               __grid_constant__ const CUtensorMap tk, __grid_constant__ const CUtensorMap tv,
               const BwdParams p) {
   using C = Cfg<D>;
   constexpr int W = C::W, NB = C::NB, ROW = C::ROW, TILE = C::TILE;
+  constexpr int NC = C::NC, STAGES = C::STAGES;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;  // [2 warpgroups][NB][64][W]
-  const uint32_t sdO = sQ + 2 * TILE;                         // [2 warpgroups][NB][64][W]
-  const uint32_t sK = sdO + 2 * TILE;                         // [STAGES][NB][64][W]
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;  // [NC warpgroups][NB][64][W]
+  const uint32_t sdO = sQ + NC * TILE;                        // [NC warpgroups][NB][64][W]
+  const uint32_t sK = sdO + NC * TILE;                        // [STAGES][NB][64][W]
   const uint32_t sV = sK + STAGES * TILE;                     // [STAGES][NB][64][W]
   const uint32_t bars = sV + STAGES * TILE;  // q full / empty, then per stage full, empty
   const uint32_t q_full = bars, q_empty = bars + 8;
@@ -749,7 +834,7 @@ __global__ void __launch_bounds__(NT, 1)
   auto empty = [&](int s) { return bars + 8 * (2 + STAGES + s); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_qt = (p.Sq + 2 * R - 1) / (2 * R);
+  const int n_qt = (p.Sq + NC * R - 1) / (NC * R);
   const int n_items = n_qt * p.H * p.B;
   const int n_kt = (p.Sk + R - 1) / R;
   // items are (q tile, head, batch); under a causal mask the last q tiles do
@@ -757,31 +842,31 @@ __global__ void __launch_bounds__(NT, 1)
   // neighbours
   auto item = [&](int i, int& q_start, int& h, int& b) {
     const int qt = i / (p.H * p.B);
-    q_start = (p.causal ? n_qt - 1 - qt : qt) * 2 * R;
+    q_start = (p.causal ? n_qt - 1 - qt : qt) * NC * R;
     h = i % p.H;
     b = (i / p.H) % p.B;
   };
   auto next_tile = [&](int q_start, int kt) {
     for (++kt; kt < n_kt; ++kt)
-      if (tile_class(q_start, 2 * R, kt * R, R, p.Sq, p.Sk, p.causal, p.window, p.chunk) != SKIP)
+      if (tile_class(q_start, NC * R, kt * R, R, p.Sq, p.Sk, p.causal, p.window, p.chunk) != SKIP)
         break;
     return kt;
   };
 
   if (tid == 0) {
     mbar_init(q_full, 1);
-    mbar_init(q_empty, 256);
+    mbar_init(q_empty, 128 * NC);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 256);
+      mbar_init(empty(s), 128 * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 8) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (warp == 8 && lane == 0) {
+  if (warp >= 4 * NC) {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * NC && lane == 0) {
       int stage = 0, phase = 0, q_phase = 0;
       for (int it = round_item(0); it < n_items; it = round_item(it / gridDim.x + 1)) {
         int q_start, h, b;
@@ -792,8 +877,8 @@ __global__ void __launch_bounds__(NT, 1)
         auto load_q = [&]() {
           mbar_wait(q_empty, q_phase ^ 1);
           q_phase ^= 1;
-          mbar_expect_tx(q_full, 4 * TILE);
-          for (int w = 0; w < 2; ++w)
+          mbar_expect_tx(q_full, 2 * NC * TILE);
+          for (int w = 0; w < NC; ++w)
             for (int c = 0; c < NB; ++c) {
               tma_load(sQ + w * TILE + c * R * ROW, &tq, q_full, c * W, q_start + R * w, h, b);
               tma_load(sdO + w * TILE + c * R * ROW, &tdo, q_full, c * W, q_start + R * w, h, b);
@@ -818,7 +903,7 @@ __global__ void __launch_bounds__(NT, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
     const uint32_t q_tile = sQ + wg * TILE, do_tile = sdO + wg * TILE;
     // s, dp: S and dP, then dS in dp; element 4 n + e is row e < 2 ? qi0 :
@@ -918,8 +1003,21 @@ bool make_stat_map(CUtensorMap* map, float* base, int Sq, int Sp, int rows) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// dk and dv from the head groups' f32 partial sums [2][n_split][n], added in
+// the groups' order and rounded to bf16
+__global__ void __launch_bounds__(256) split_sum_kernel(const float* part, bf16* dk, bf16* dv,
+                                                        int64_t n, int n_split) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  const float* src = part + blockIdx.y * n_split * n + i;
+  float acc = src[0];
+  for (int s = 1; s < n_split; ++s) acc += src[s * n];
+  (blockIdx.y == 0 ? dk : dv)[i] = __float2bfloat16(acc);
+}
+
 template <int D>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  using C = Cfg<D>;
   cudaError_t err = launch_delta<bf16>(p, D, stream);
   if (err != cudaSuccess) return err;
   const int64_t q_ss = (int64_t)p.H * D, k_ss = (int64_t)p.KV * D;
@@ -940,11 +1038,18 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  const int kv_items = (p.Sk + 2 * R - 1) / (2 * R) * p.KV * p.B;
-  dkdv_kernel<D><<<min(kv_items, sms), NT, smem, stream>>>(tq, tdo, tk, tv, tstat, p);
+  const int kv_items =
+      (p.Sk + C::NC * R - 1) / (C::NC * R) * p.KV * p.B * C::PARTS * p.n_split;
+  dkdv_kernel<D><<<min(kv_items, sms), C::NT, smem, stream>>>(tq, tdo, tk, tv, tstat, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int q_items = (p.Sq + 2 * R - 1) / (2 * R) * p.H * p.B;
-  dq_kernel<D><<<min(q_items, sms), NT, smem, stream>>>(tq, tdo, tk, tv, p);
+  if (p.n_split > 1) {
+    const int64_t n = (int64_t)p.B * p.Sk * p.KV * D;
+    split_sum_kernel<<<dim3((unsigned)((n + 255) / 256), 2), 256, 0, stream>>>(
+        p.part, static_cast<bf16*>(p.dk), static_cast<bf16*>(p.dv), n, p.n_split);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int q_items = (p.Sq + C::NC * R - 1) / (C::NC * R) * p.H * p.B;
+  dq_kernel<D><<<min(q_items, sms), C::NT, smem, stream>>>(tq, tdo, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -957,11 +1062,13 @@ cudaError_t launch_d(const BwdParams& p, int dtype, int D, cudaStream_t s) {
     if (D == 32) return wg::launch<32>(p, s);
     if (D == 64) return wg::launch<64>(p, s);
     if (D == 128) return wg::launch<128>(p, s);
+    if (D == 256) return wg::launch<256>(p, s);
   } else if (dtype == 0) {
     if (D == 16) return cc::launch<16>(p, s);
     if (D == 32) return cc::launch<32>(p, s);
     if (D == 64) return cc::launch<64>(p, s);
     if (D == 128) return cc::launch<128>(p, s);
+    if (D == 256) return cc::launch<256>(p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -970,17 +1077,22 @@ cudaError_t launch_d(const BwdParams& p, int dtype, int D, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16 (every pointer 16-byte aligned); every
 // tensor contiguous; delta is f32 scratch of 2 B H Sp floats, Sp = Sq
-// rounded up to a multiple of 4. Returns a cudaError_t (0 = success).
+// rounded up to a multiple of 4; n_split (bf16 only, else 1) the head
+// groups of a dK / dV item, part f32 scratch of 2 n_split B Sk KV D floats
+// when n_split > 1 (else null). Returns a cudaError_t (0 = success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, int dtype, int B, int Sq, int Sk, int H,
-                                   int KV, int D, int causal, int window, int chunk,
-                                   float softcap, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                                   void* dk, void* dv, float* part, int n_split, int dtype,
+                                   int B, int Sq, int Sk, int H, int KV, int D, int causal,
+                                   int window, int chunk, float softcap, float scale,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || n_split < 1 ||
+      (H / KV) % n_split != 0 || (n_split > 1 && (part == nullptr || dtype != 1)))
+    return (int)cudaErrorInvalidValue;
   // bf16 also keeps lse log2(e) beside delta; both rows padded for TMA
   const int Sp = dtype == 1 ? (Sq + 3) / 4 * 4 : Sq;
   float* lse2 = dtype == 1 ? delta + (int64_t)B * H * Sp : nullptr;
-  const BwdParams p{q, k, v, o, dout, lse, delta, lse2, dq, dk, dv, B, Sq, Sk, H, KV, Sp,
-                    causal, window, chunk, softcap, scale};
+  const BwdParams p{q, k, v, o, dout, lse, delta, lse2, dq, dk, dv, part, n_split, B, Sq, Sk,
+                    H, KV, Sp, causal, window, chunk, softcap, scale};
   return (int)launch_d(p, dtype, D, static_cast<cudaStream_t>(stream));
 }

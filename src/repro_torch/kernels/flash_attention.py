@@ -16,8 +16,10 @@ needs q / k / v to start on a 16-byte boundary with every stride a multiple
 of 16 bytes (``aligned_for_tma``); a bf16 CUDA view that is not raises.  The
 backward's design follows the dtype too (``BWD_DESIGNS``): bf16 on the
 tensor cores (wgmma, tiles loaded by TMA; tensors on 16-byte boundaries),
-f32 on CUDA cores.  ``bwd_items`` and ``persistent_rounds`` mirror the order
-in which the bf16 backward's persistent grid takes its items.
+f32 on CUDA cores, at every head dim the forward takes.  ``bwd_items`` and
+``persistent_rounds`` mirror the order in which the bf16 backward's
+persistent grid takes its items, ``bwd_split`` the head groups its dK / dV
+items sum over at D 256.
 """
 from __future__ import annotations
 
@@ -42,14 +44,35 @@ launches = 0      # forward without the LSE (serving)
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
 BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
-# the backward's head dims: at D 256 the f32 design's tiles do not fit in a
-# block's shared memory, nor the bf16 design's dK / dV accumulators in registers
-BWD_HEAD_DIMS = (16, 32, 64, 128)
-# the bf16 backward's tiles: a consumer warpgroup owns 64 rows, a block two;
-# a dK / dV item is 128 keys stepping over 64 q rows, a dQ item 128 q rows
-# stepping over 64 keys
+# the bf16 backward's tiles: a consumer warpgroup owns 64 rows, a block two
+# up to D 128 (one at D 256); a dK / dV item is 128 keys stepping over 64 q
+# rows, a dQ item 128 q rows stepping over 64 keys (64 and 64 at D 256)
 BWD_ROWS = 64
 BWD_ITEM = 2 * BWD_ROWS
+# at D 256 a dK / dV item takes half of D, and the heads of a group are
+# split into the fewest groups (a divisor of G) that give at least
+# BWD_SPLIT_ITEMS items, about four for each of the card's 132 SMs: under
+# MQA and a causal mask 64-key items alone are too few and too uneven
+BWD_SPLIT_ITEMS = 512
+
+
+def bwd_item_rows(D: int) -> int:
+    """Keys of a dK / dV item and q rows of a dQ item of the bf16 backward."""
+    return BWD_ITEM if D <= 128 else BWD_ROWS
+
+
+def bwd_split(D: int, B: int, Sk: int, H: int, KV: int) -> int:
+    """The head groups that a bf16 dK / dV item sums over: 1 up to D 128;
+    at D 256 the fewest that give BWD_SPLIT_ITEMS items (their f32 partial
+    sums are added in a fixed order by a second kernel)."""
+    if D <= 128:
+        return 1
+    G = H // KV
+    base = -(-Sk // BWD_ROWS) * KV * B * 2  # 64-key tiles x halves of D
+    for n in range(1, G + 1):
+        if G % n == 0 and base * n >= BWD_SPLIT_ITEMS:
+            return n
+    return G
 
 
 def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, Sk: int,
@@ -86,24 +109,32 @@ def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, 
 
 
 def bwd_items(kind: str, B: int, Sq: int, Sk: int, H: int, KV: int, *,
-              causal: bool) -> list[tuple[int, int, int]]:
+              causal: bool, D: int = 128) -> list[tuple[int, ...]]:
     """The bf16 backward's items in the order its persistent grid hands them
-    out (``item`` in ``dkdv_kernel`` and ``dq_kernel``): for ``"dkdv"``
-    (first key, kv head, batch) of 128-key tiles, first key tiles first (under
-    a causal mask they see the most q rows); for ``"dq"`` (first q row, head,
-    batch) of 128-row tiles, the last q tiles first under a causal mask."""
+    out (``item`` in ``dkdv_kernel`` and ``dq_kernel``), tiles of
+    ``bwd_item_rows(D)``: for ``"dkdv"`` (first key, kv head, batch) up to D
+    128 and (first key, kv head, batch, half of D, head group) at D 256,
+    first key tiles first (under a causal mask they see the most q rows);
+    for ``"dq"`` (first q row, head, batch), the last q tiles first under a
+    causal mask."""
+    rows = bwd_item_rows(D)
     if kind == "dkdv":
-        n_tiles, heads = -(-Sk // BWD_ITEM), KV
+        n_tiles, heads = -(-Sk // rows), KV
+        parts, split = (1, 1) if D <= 128 else (2, bwd_split(D, B, Sk, H, KV))
     elif kind == "dq":
-        n_tiles, heads = -(-Sq // BWD_ITEM), H
+        n_tiles, heads, parts, split = -(-Sq // rows), H, 1, 1
     else:
         raise ValueError(f"kind must be 'dkdv' or 'dq', not {kind!r}")
+    per_tile = heads * B * parts * split
     items = []
-    for i in range(n_tiles * heads * B):
-        tile = i // (heads * B)
+    for i in range(n_tiles * per_tile):
+        tile, r = divmod(i, per_tile)
         if kind == "dq" and causal:
             tile = n_tiles - 1 - tile
-        items.append((tile * BWD_ITEM, i % heads, (i // heads) % B))
+        it = (tile * rows, r % heads, r // heads % B)
+        if kind == "dkdv" and D > 128:
+            it += (r // (heads * B) % parts, r // (heads * B * parts))
+        items.append(it)
     return items
 
 
@@ -250,11 +281,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                                  chunk=chunk, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if D not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward kernel takes head dims {BWD_HEAD_DIMS}, not {D}: its f32 "
-            "tiles would not fit in a block's shared memory, nor its bf16 dK / dV "
-            "accumulators in registers")
     Sk, KV = k.shape[1], k.shape[2]
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     if q.dtype == torch.bfloat16:
@@ -267,12 +293,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return dq.zero_(), dk.zero_(), dv.zero_()
     # delta, then (bf16) lse log2(e), each (B, H, Sq rounded up to 4) for TMA
     delta = torch.empty(2 * B * H * (-(-Sq // 4) * 4), dtype=torch.float32, device=q.device)
+    # bf16 at D 256: the head groups' f32 partial sums of dK and dV
+    n_split = bwd_split(D, B, Sk, H, KV) if q.dtype == torch.bfloat16 else 1
+    part = (torch.empty((2, n_split) + tuple(k.shape), dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), n_split,
             DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
             int(causal), int(window), int(chunk), float(softcap), 1.0 / math.sqrt(D), stream)
     _build.check(lib, err, "flash_attention_bwd launch")

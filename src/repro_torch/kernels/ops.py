@@ -8,10 +8,10 @@ grad is enabled and q, k or v requires grad, through ``FlashAttention``
 shapes run the plain version on the CPU and are not yet ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
 ``wkv6`` and ``rglru`` always go to their kernel wrappers, with or without
-a state; ``wkv6`` like ``flash_attention``: when grad is enabled and an
-input requires grad, through ``WKV6`` (the forward kernel, and the backward
-kernel in the backward pass), otherwise (serving) through the forward
-wrapper alone.  ``causal_conv1d`` is plain PyTorch, as the reference
+a state, like ``flash_attention``: when grad is enabled and an input
+requires grad, through ``WKV6`` or ``RGLRU`` (the forward kernel, and the
+backward kernel in the backward pass), otherwise (serving) through the
+forward wrapper alone.  ``causal_conv1d`` is plain PyTorch, as the reference
 computes it in jnp outside any kernel.
 """
 from __future__ import annotations
@@ -83,6 +83,9 @@ def rglru(
     log_a: torch.Tensor,  # (B, S, W) log recurrence coefficient (<= 0)
     h0: Optional[torch.Tensor] = None,  # (B, W) f32, updated in place
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, log_a, h0)):
+        return kg.RGLRU.apply(x, log_a, h0)
     return kg.rglru(x, log_a, h0)
 
 

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the oracles in ``repro.kernels.ref``: attention
 (with the row log-sum-exp and the backward of ``repro.kernels.ops._flash``),
-decode attention, the RWKV-6 WKV recurrence (with its VJP, which the
-reference takes by ``jax.grad`` of ``wkv6_ref``) and the RG-LRU recurrence.
+decode attention, the RWKV-6 WKV recurrence and the RG-LRU recurrence
+(each with its VJP, which the reference takes by ``jax.grad`` of
+``wkv6_ref`` and ``rglru_ref``).
 
 They are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They favour clarity over memory: the
@@ -103,18 +104,22 @@ def flash_bwd_ref(
     chunk: int = 0,
     softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The arithmetic of ``ops._flash_bwd_impl`` unblocked, in f32: P from
-    (q, k, lse) under the mask, delta = rowsum(dO * O), dV = P^T dO,
-    dS = P (dO V^T - delta) [(1 - tanh^2)] * scale, dQ = dS K, dK = dS^T Q,
-    dK and dV summed over each kv head's G query heads.  Returns (dq, dk,
-    dv) in the inputs' dtypes."""
+    """The arithmetic of ``ops._flash_bwd_impl`` unblocked: P from (q, k,
+    lse) under the mask, delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T
+    - delta) [(1 - tanh^2)] * scale, dQ = dS K, dK = dS^T Q, dK and dV
+    summed over each kv head's G query heads.  Returns (dq, dk, dv) in the
+    inputs' dtypes.  It computes in f64 and rounds once at the end: dK and
+    dV sum G x Sq terms (16 x 2048 under recurrentgemma-9b's MQA), and there
+    f32 sums taken in another order missed the exact value by 1e-4, more
+    than the f32 tolerance the kernels are held to."""
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
     scale = 1.0 / math.sqrt(D)
-    qf = q.float().reshape(B, Sq, KV, G, D)
-    kf, vf = k.float(), v.float()
-    dof = do.float().reshape(B, Sq, KV, G, D)
+    f64 = torch.float64
+    qf = q.to(f64).reshape(B, Sq, KV, G, D)
+    kf, vf = k.to(f64), v.to(f64)
+    dof = do.to(f64).reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
     if softcap > 0:
         sc = torch.tanh(s / softcap)
@@ -122,9 +127,9 @@ def flash_bwd_ref(
     q_pos = torch.arange(Sq, device=q.device)
     m = _mask(q_pos, torch.arange(Sk, device=q.device), causal=causal, window=window,
               chunk=chunk)[None, None, None]
-    lse_b = lse.float().reshape(B, KV, G, Sq)
+    lse_b = lse.to(f64).reshape(B, KV, G, Sq)
     p = torch.where(m, torch.exp(s - lse_b[..., None]), 0.0)
-    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.float().reshape(B, Sq, KV, G, D))
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.to(f64).reshape(B, Sq, KV, G, D))
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     ds = p * (dp - delta[..., None])
@@ -273,3 +278,56 @@ def rglru_ref(
         hs.append(h)
     out = torch.stack(hs, 1) if hs else torch.zeros_like(xf)
     return out.to(x.dtype), h
+
+
+def _rglru_coeffs(laf: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """a = exp(l), e = exp(2 l), s = sqrt(max(1 - e, 1e-12)) and the clamp's
+    share of the gradient (1 where 1 - e wins, 0.5 at a tie, 0 where the
+    clamp wins: ``jax.grad``'s rule for ``jnp.maximum``), all in f32 as the
+    forward computes them."""
+    a = torch.exp(laf)
+    e = torch.exp(2.0 * laf)
+    u = 1.0 - e
+    m = torch.clamp(u, min=1e-12)
+    share = torch.where(u == m, torch.where(m == 1e-12, 0.5, 1.0), 0.0)
+    return a, e, torch.sqrt(m), share
+
+
+def rglru_bwd_ref(
+    x: torch.Tensor,      # (B, S, W)
+    log_a: torch.Tensor,  # (B, S, W)
+    h0: torch.Tensor | None,  # (B, W) f32 initial state, or None (zeros)
+    do: torch.Tensor,     # (B, S, W) cotangent of the output, x's dtype
+    dh: torch.Tensor | None = None,  # (B, W) f32 cotangent of the final state, or None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of ``rglru_ref``, exact sequential form in f32.  With g_t the
+    cotangent of h_t (g_{S-1} = dO_{S-1} + dh; g_t = dO_t + a_{t+1} g_{t+1}):
+
+      dx_t = g_t s_t
+      dl_t = (g_t h_{t-1}) a_t + 2 (-((g_t x_t) (0.5 / s_t) share_t) e_t)
+      dh0  = a_0 g_0
+
+    (s_t = sqrt(max(1 - e_t, 1e-12)), e_t = exp(2 l_t); the second term of
+    dl_t is x_t g_t ds_t/dl_t, in the order ``jax.grad`` takes it).  h is
+    rebuilt forward from h0, never by dividing by a.  Returns (dx in x's
+    dtype, dlog_a in log_a's dtype, dh0 f32)."""
+    B, S, W = x.shape
+    xf, laf, dof = x.float(), log_a.float(), do.float()
+    a, e, s, share = _rglru_coeffs(laf)
+    b = s * xf
+    h = (torch.zeros((B, W), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    prev = []  # h_{t-1} for each t
+    for t in range(S):
+        prev.append(h)
+        h = a[:, t] * h + b[:, t]
+    carry = (torch.zeros((B, W), dtype=torch.float32, device=x.device)
+             if dh is None else dh.float())
+    dx, dla = torch.empty_like(xf), torch.empty_like(xf)
+    for t in range(S - 1, -1, -1):
+        g = carry + dof[:, t]
+        dx[:, t] = g * s[:, t]
+        ds_term = -((g * xf[:, t]) * (0.5 / s[:, t]) * share[:, t]) * e[:, t]
+        dla[:, t] = (g * prev[t]) * a[:, t] + 2.0 * ds_term
+        carry = g * a[:, t]
+    return dx.to(x.dtype), dla.to(log_a.dtype), carry

@@ -6,10 +6,11 @@ Parameters are a flat dict keyed by the reference's checkpoint flatten paths
 group's layers stacked on a leading ``repeats`` axis; :class:`Transformer`
 holds them as module parameters.  A ``for`` loop over the stacked layer index
 takes the place of ``lax.scan``.  Global- and local-attention layers (dense
-FFN), RWKV-6 layers and RG-LRU layers are ported for serving; every other
-feature raises ``NotImplementedError`` when the model is built.  Training
-(``loss_fn``) takes the attention and RWKV-6 layers: the RG-LRU kernel has
-no backward yet.
+FFN), RWKV-6 layers and RG-LRU layers are ported; every other feature
+raises ``NotImplementedError`` when the model is built.  Each of them
+serves and trains (``loss_fn``): attention through the ``FlashAttention``
+Function, RWKV-6 through ``WKV6`` and RG-LRU through ``RGLRU``, each a
+forward kernel and a backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -38,8 +39,7 @@ from repro_torch.models.params import ParamDef
 # ---------------------------------------------------------------------------
 # Parameter definitions
 # ---------------------------------------------------------------------------
-PORTED_KINDS = ("global", "local", "rwkv", "rglru")
-TRAINABLE_KINDS = ("global", "local", "rwkv")
+PORTED_KINDS = ("global", "local", "rwkv", "rglru")  # each serves and trains
 # recurrent kinds: (block, zero state); the block updates a given state in place
 RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
              "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}
@@ -268,19 +268,11 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     return {path: t.to(dtype) if t.is_floating_point() else t for path, t in params.items()}
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    for kind in cfg.layer_kinds():
-        if kind not in TRAINABLE_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: training {kind!r} layers needs a backward kernel that is not "
-                "ported yet")
-
-
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
             dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
     """Scalar training loss and metrics; batch["tokens"] is (B, S + 1),
     shifted into inputs and labels; batch["mask"] (B, S) is optional."""
-    check_trainable(cfg)
+    check_supported(cfg)
     params = cast_params(params, dtype)
     tokens = batch["tokens"]
     labels = tokens[:, 1:]

@@ -123,7 +123,6 @@ class FaultTolerantTrainer:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             require_deterministic()
-        transformer.check_trainable(cfg)
         self.defs = transformer.model_defs(cfg)
         self.step_fn = make_train_step(
             cfg, optimizer_config(tcfg), grad_compression=tcfg.grad_compression,

@@ -10,8 +10,12 @@ uses expf), bf16 2e-2 (the reference's bf16 tolerance); WKV-6 the
 reference's own, f32 5e-5, bf16 5e-2; RG-LRU f32 1e-5 (the reference's
 between its kernel and its oracle) and one bf16 ulp for a bf16 output;
 the flash backward f32 5e-5 (the reference's VJP tolerance), bf16 2e-2 plus
-one bf16 ulp of the plain value; the WKV-6 backward (both designs) f32
-5e-5 times the output's largest magnitude, bf16 one bf16 ulp more.  The training tests run
+one bf16 ulp of the plain value, held to the plain version's unrounded
+result; the WKV-6 backward (both designs) f32
+5e-5 times the output's largest magnitude, bf16 one bf16 ulp more; the
+RG-LRU backward 1e-5 max(1, |want|) (dlog_a: max(1, |want|, |x ds/dlog_a|),
+as tests/test_torch_rglru_bwd.py says why), plus one bf16 ulp of a bf16
+output.  The training tests run
 the trainer in a subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA
 initialises."""
 import os
@@ -475,6 +479,79 @@ def test_rglru_reads_strided_inputs(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _check_rglru_bwd(got, want, x, la):
+    e = torch.exp(2.0 * la.double())
+    sens = torch.where(1.0 - e > 1e-12, x.double().abs() * e / torch.sqrt(
+        torch.clamp(1.0 - e, min=1e-12)), 0.0).cpu()
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        g, w = g.double().cpu(), w.double().cpu()
+        scale = torch.clamp(w.abs(), min=1.0)
+        if n == 1:
+            scale = torch.maximum(scale, sens)
+        lim = 1e-5 * scale + (2.0 ** -7 * w.abs() if got[n].dtype == torch.bfloat16 else 0.0)
+        assert bool(((g - w).abs() <= lim).all()), (n, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("log_a", ["random", 0.0, -1e-7, -30.0])
+@pytest.mark.parametrize("types", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape,state", [((2, 77, 200), True), ((1, 1, 64), True),
+                                         ((2, 2048, 4096), False), ((3, 33, 100), False)])
+def test_rglru_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, shape, state, types,
+                                                                     log_a):
+    """The backward kernel against ``ref.rglru_bwd_ref`` (h0 and the final
+    state's cotangent given or not; every other step at the given log_a),
+    and two calls give the same bits (no atomics)."""
+    x, la, h0 = _rglru_inputs(*shape, *types, cuda, state=state)
+    if log_a != "random":
+        la[:, ::2] = log_a
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(shape, generator=g, device=cuda).to(types[0])
+    dh = torch.randn((shape[0], shape[2]), generator=g, device=cuda) if state else None
+    before = kg.bwd_launches
+    got = kg.rglru_bwd(x, la, h0, do, dh)
+    again = kg.rglru_bwd(x, la, h0, do, dh)
+    assert kg.bwd_launches == before + 2
+    want = ref.rglru_bwd_ref(x, la, h0, do, dh)
+    torch.cuda.synchronize()
+    _check_rglru_bwd(got, want, x, la)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_recurrentgemma_training_on_card_goes_through_the_kernels(cuda):
+    """Smoke recurrentgemma-9b's loss and gradients on the card in f32 (the
+    RG-LRU forward twice per RG-LRU layer, the forward and its remat
+    recompute, and its backward once; the flash LSE forward twice and its
+    backward once per local layer) match the CPU's plain path to 1e-5
+    (loss) and 1e-4 (gradients); bf16 launches the same kernels."""
+    cfg = smoke_config(get_arch("recurrentgemma-9b"))
+    n_rglru, n_local = cfg.layer_kinds().count("rglru"), cfg.layer_kinds().count("local")
+    params = pmod.materialize(transformer.model_defs(cfg), seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (2, 101)))
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        kg.launches = kg.bwd_launches = fa.lse_launches = fa.bwd_launches = 0
+        loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(dev)},
+                                      dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append([loss.detach().cpu()] + [g.cpu() for g in grads])
+    want = (2 * n_rglru, n_rglru, 2 * n_local, n_local)
+    assert (kg.launches, kg.bwd_launches, fa.lse_launches, fa.bwd_launches) == want
+    assert abs(float(out[0][0] - out[1][0])) <= 1e-5
+    for a, b in zip(out[0][1:], out[1][1:]):
+        assert torch.isfinite(b).all()
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
+    leaves = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    kg.launches = kg.bwd_launches = fa.lse_launches = fa.bwd_launches = 0
+    loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(cuda)})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert (kg.launches, kg.bwd_launches, fa.lse_launches, fa.bwd_launches) == want
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
 @pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     cfg = smoke_config(get_arch(arch))
@@ -560,6 +637,14 @@ BWD_CASES = [
     (2, 191, 4, 2, 128, True, 0, 0, 0.0),     # 63 rows past one
     (1, 512, 4, 2, 128, True, 130, 0, 0.0),   # window of 130
     (1, 512, 4, 2, 128, True, 0, 100, 0.0),   # chunk of 100 at D 128
+    # D 256 (recurrentgemma-9b's local layers): 64-key / 64-row items, two
+    # halves of D, head groups summed by a second kernel unless G is 1
+    (2, 2048, 16, 1, 256, True, 2048, 0, 0.0),  # recurrentgemma-9b training
+    (1, 4096, 16, 1, 256, True, 2048, 0, 0.0),  # a window shorter than S
+    (1, 333, 4, 1, 256, True, 128, 0, 0.0),     # ragged S
+    (1, 200, 4, 2, 256, False, 0, 0, 0.0),      # GQA without a mask
+    (1, 300, 8, 1, 256, True, 0, 100, 0.0),     # chunk of 100
+    (2, 130, 2, 2, 256, True, 0, 0, 30.0),      # softcap, G 1: no head split
 ]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -567,7 +652,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def _assert_bwd_close(got, want, dtype):
     g, w = got.float().cpu(), want.float().cpu()
     lim = BWD_TOL[dtype] + (2.0 ** -7 * w.abs() if dtype == torch.bfloat16 else 0.0)
-    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.dtype == dtype and got.shape == want.shape
     assert bool(((g - w).abs() <= lim).all()), float((g - w).abs().max())
 
 
@@ -598,14 +683,15 @@ def test_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert fa.bwd_launches == before + 2
-    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    # the plain version's result before it is rounded to the inputs' dtype
+    want = ref.flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         _assert_bwd_close(a, b, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("D", fa.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_bf16_backward_runs_the_wgmma_design_at_every_head_dim(cuda, D):
     """The kernels a bf16 backward launches, by name (torch.profiler): the
     delta pass and the wgmma design's dK / dV and dQ kernels at this D."""
@@ -625,13 +711,9 @@ def test_bf16_backward_runs_the_wgmma_design_at_every_head_dim(cuda, D):
     assert "delta_kernel" in names and "cc::" not in names, names
 
 
-def test_backward_kernel_refuses_head_dim_256_and_a_misaligned_bf16_tensor(cuda):
-    q = torch.zeros((1, 64, 2, 256), device=cuda, dtype=torch.bfloat16)
-    k = torch.zeros((1, 64, 1, 256), device=cuda, dtype=torch.bfloat16)
-    o, lse = fa.flash_attention_lse(q, k, k)
-    with pytest.raises(NotImplementedError, match="head dims"):
-        fa.flash_attention_bwd(q, k, k, o, lse, q)
-    q, k = q[..., :64].contiguous(), k[..., :64].contiguous()
+def test_backward_kernel_refuses_a_misaligned_bf16_tensor(cuda):
+    q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 1, 64), device=cuda, dtype=torch.bfloat16)
     o, lse = fa.flash_attention_lse(q, k, k)
     do = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte"):

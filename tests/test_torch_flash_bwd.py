@@ -21,13 +21,18 @@ from repro_torch.kernels import ops, ref
 
 ATOL = 5e-5
 # (B, S, H, KV, D, causal, window, chunk, softcap): tests/test_kernels.py
-# SWEEP 0, 3 and 4 (GQA, window 256, chunk 256), then MQA and softcap 30
+# SWEEP 0, 3 and 4 (GQA, window 256, chunk 256), then MQA and softcap 30;
+# then recurrentgemma-9b's local layers (MQA at D 256): causal, a window
+# shorter than S, and a ragged S under a window
 CASES = [
     (2, 256, 4, 2, 64, True, 0, 0, 0.0),
     (1, 1024, 4, 2, 64, True, 256, 0, 0.0),
     (1, 1024, 2, 2, 64, True, 0, 256, 0.0),
     (1, 512, 8, 1, 64, True, 0, 0, 0.0),
     (1, 256, 2, 2, 64, True, 0, 0, 30.0),
+    (1, 256, 4, 1, 256, True, 0, 0, 0.0),
+    (1, 512, 4, 1, 256, True, 128, 0, 0.0),
+    (1, 300, 4, 1, 256, True, 128, 0, 0.0),
 ]
 
 

@@ -11,11 +11,15 @@ Function the card trains through (its plain versions here).
 Cases: smoke rsc-llm as configured (remat "full", one loss chunk); with
 ``loss_chunk`` 8 (four recomputed chunks) and a loss mask; smoke qwen3-0.6b
 (qk_norm, tied embeddings); smoke rsc-llm with local layers (window 16);
-and smoke rwkv6-7b, whose layers train through the ``WKV6`` Function (the
-reference differentiates its ``lax.scan`` oracle).  The first two and
-rwkv6-7b are also stepped with ``n_microbatches=2``
-(tests/test_smoke_archs.py's microbatch check), and the reference's
-accumulated gradients are saved beside the step.
+smoke rwkv6-7b, whose layers train through the ``WKV6`` Function (the
+reference differentiates its ``lax.scan`` oracle); and smoke
+recurrentgemma-9b, whose RG-LRU layers train through the ``RGLRU`` Function
+(the reference differentiates its associative scan) and whose local layers
+(MQA) through ``FlashAttention``, as configured (window 64 > S) and with
+window 16 < S.  The first two, rwkv6-7b and recurrentgemma-9b are also
+stepped with ``n_microbatches=2`` (tests/test_smoke_archs.py's microbatch
+check), and the reference's accumulated gradients are saved beside the
+step.
 Tolerances: 1e-5 on the loss and the metrics, 1e-4 on every gradient (two
 layers of f32 matmuls and their backward summed in different orders by two
 frameworks).  After one AdamW step a weight moves by lr (g / (|g| + eps) +
@@ -24,6 +28,11 @@ lr min(2, 1e-4 eps / (|g| + eps)^2) more, which is what the stepped weights
 are held to (plus 1e-6); near g = 0 that sensitivity is AdamW's, not the
 port's.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
 import textwrap
 
 import numpy as np
@@ -45,10 +54,13 @@ CASES = {
     "qwen3-0.6b": ("qwen3-0.6b", {}, False),
     "rsc-llm-local": ("rsc-llm", {"block_groups": ((("local",), 2),), "window": 16}, False),
     "rwkv6-7b": ("rwkv6-7b", {}, False),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}, False),
+    "recurrentgemma-9b-window": ("recurrentgemma-9b", {"window": 16}, False),
 }
 # cases also stepped with n_microbatches=2 (a microbatch of one row each)
-MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b")
+MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b", "recurrentgemma-9b")
 B, S = 2, 32
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 LR = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
 
@@ -285,9 +297,33 @@ def test_master_weights_train_and_serving_stays_frozen():
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in serve.parameters())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_training_recurrent_layers_raises(arch):
+def test_recurrentgemma_trains_through_the_launcher_on_cpu(tmp_path):
+    """``launch/train.py --arch recurrentgemma-9b --smoke --device cpu``
+    trains the hybrid through the trainer, a crash and a restore included,
+    and its loss falls on the pipeline's batches."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "recurrentgemma-9b",
+           "--smoke", "--device", "cpu", "--steps", "6", "--batch", "2", "--seq", "32",
+           "--ckpt-every", "2", "--inject-rate", "0.3", "--ckpt-dir", str(tmp_path / "ck")]
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rep = json.loads(r.stdout)
+    assert rep["arch"] == "recurrentgemma-9b-smoke" and rep["final_step"] == 6
+    assert rep["attempts"] >= 2 and 0.0 < rep["measured_ettr"] <= 1.0
+    assert np.isfinite(rep["loss_first"]) and rep["loss_last"] < rep["loss_first"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_recurrent_remat_leaves_loss_and_grads_unchanged(arch):
+    """The recurrent blocks under remat "full": each runs twice, on a fresh
+    state each time (its kernels update a given state in place), and the
+    loss and every gradient equal the run without remat, bit for bit."""
     cfg = smoke_config(get_arch(arch))
-    params = pmod.materialize(transformer.model_defs(cfg), seed=0)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        transformer.loss_fn(params, cfg, _np_batch(cfg, b=1, s=8))
+    batch = _np_batch(cfg, b=2, s=16)
+    out = {}
+    for policy in ("full", "none"):
+        loss, _, masters = _loss_and_leaves(cfg.replace(remat_policy=policy), batch)
+        out[policy] = [loss.detach()] + list(torch.autograd.grad(loss, list(masters.values())))
+    for a, b in zip(out["full"], out["none"]):
+        assert torch.equal(a, b)
