@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
     lib.rglru_fwd.restype = i32
     lib.rglru_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
     lib.rglru_bwd.restype = i32
+    lib.rglru_bwd_tiled.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.rglru_bwd_tiled.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

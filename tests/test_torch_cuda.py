@@ -493,30 +493,35 @@ def _check_rglru_bwd(got, want, x, la):
         assert bool(((g - w).abs() <= lim).all()), (n, float((g - w).abs().max()))
 
 
+@pytest.mark.parametrize("kernel", [kg.BWD_TILED, kg.BWD_CHANNEL])
 @pytest.mark.parametrize("log_a", ["random", 0.0, -1e-7, -30.0])
 @pytest.mark.parametrize("types", [(torch.float32, torch.float32),
                                    (torch.bfloat16, torch.float32),
                                    (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("shape,state", [((2, 77, 200), True), ((1, 1, 64), True),
-                                         ((2, 2048, 4096), False), ((3, 33, 100), False)])
+                                         ((2, 2048, 4096), False), ((3, 33, 100), False),
+                                         ((2, 96, 256), True)])
 def test_rglru_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, shape, state, types,
-                                                                     log_a):
-    """The backward kernel against ``ref.rglru_bwd_ref`` (h0 and the final
-    state's cotangent given or not; every other step at the given log_a),
-    and two calls give the same bits (no atomics)."""
+                                                                     log_a, kernel):
+    """Each backward design against ``ref.rglru_bwd_ref`` (h0 and the final
+    state's cotangent given or not; every other step at the given log_a):
+    within the tolerance and equal to the bit, since both keep the plain
+    version's f32 order; and two calls give the same bits (no atomics)."""
     x, la, h0 = _rglru_inputs(*shape, *types, cuda, state=state)
     if log_a != "random":
         la[:, ::2] = log_a
     g = torch.Generator(device=cuda).manual_seed(1)
     do = torch.randn(shape, generator=g, device=cuda).to(types[0])
     dh = torch.randn((shape[0], shape[2]), generator=g, device=cuda) if state else None
-    before = kg.bwd_launches
-    got = kg.rglru_bwd(x, la, h0, do, dh)
-    again = kg.rglru_bwd(x, la, h0, do, dh)
+    before, by_design = kg.bwd_launches, kg.bwd_kernel_launches[kernel]
+    got = kg.rglru_bwd(x, la, h0, do, dh, kernel=kernel)
+    again = kg.rglru_bwd(x, la, h0, do, dh, kernel=kernel)
     assert kg.bwd_launches == before + 2
+    assert kg.bwd_kernel_launches[kernel] == by_design + 2
     want = ref.rglru_bwd_ref(x, la, h0, do, dh)
     torch.cuda.synchronize()
     _check_rglru_bwd(got, want, x, la)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -546,9 +551,13 @@ def test_recurrentgemma_training_on_card_goes_through_the_kernels(cuda):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
     leaves = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
     kg.launches = kg.bwd_launches = fa.lse_launches = fa.bwd_launches = 0
+    kg.bwd_kernel_launches = dict.fromkeys(kg.bwd_kernel_launches, 0)
     loss, _ = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(cuda)})
     grads = torch.autograd.grad(loss, list(leaves.values()))
     assert (kg.launches, kg.bwd_launches, fa.lse_launches, fa.bwd_launches) == want
+    routed = kg.BWD_DESIGNS[torch.bfloat16]
+    assert kg.bwd_kernel_launches == {d: n_rglru if d == routed else 0
+                                      for d in kg.bwd_kernel_launches}
     assert all(torch.isfinite(g).all() for g in grads)
 
 
