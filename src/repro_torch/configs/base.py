@@ -112,6 +112,9 @@ class ArchConfig:
             out.extend(list(pattern) * repeats)
         return out
 
+    def count_kind(self, *kinds: str) -> int:
+        return sum(1 for k in self.layer_kinds() if k in kinds)
+
     def kv_cache_len(self, kind: str, seq_len: int) -> int:
         if kind == "global":
             return seq_len
@@ -151,7 +154,8 @@ def _ensure_loaded() -> None:
 
     if _REGISTRY.get("__loaded__"):
         return
-    for mod in ("qwen3_0_6b", "recurrentgemma_9b", "rsc_llm", "rwkv6_7b"):
+    for mod in ("gemma3_4b", "granite_20b", "llama4_scout_17b_a16e", "mixtral_8x22b",
+                "qwen3_0_6b", "recurrentgemma_9b", "rsc_llm", "rwkv6_7b", "starcoder2_3b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _REGISTRY["__loaded__"] = True  # type: ignore[assignment]
 

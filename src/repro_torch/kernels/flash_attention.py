@@ -41,6 +41,7 @@ _BIG = 1 << 30
 
 # kernel launches since the last reset; the CPU path does not count
 launches = 0      # forward without the LSE (serving)
+mask_launches: dict = {}  # those forward launches by mask, (window, chunk)
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
 BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
@@ -240,6 +241,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o, _ = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
                     softcap=softcap, with_lse=False)
     launches += 1
+    mask_launches[(window, chunk)] = mask_launches.get((window, chunk), 0) + 1
     return o
 
 

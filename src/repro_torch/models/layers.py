@@ -1,4 +1,4 @@
-"""Dense transformer building blocks: norms, RoPE, attention, FFN (after
+"""Transformer building blocks: norms, RoPE, attention, FFN, MoE (after
 ``repro.models.layers``).
 
 Functions take plain tensors; parameters come in as dicts shaped as
@@ -8,12 +8,13 @@ matmuls over flattened head dims so q / k / v come out contiguous in the
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN_KINDS, ArchConfig, MoESpec
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
 
@@ -83,12 +84,13 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
-def _window(cfg: ArchConfig, kind: str) -> int:
-    """The sliding window of a ``kind`` layer (0 = unbounded); "chunked"
-    layers are not ported and raise."""
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"{kind!r} attention layers are not ported yet")
-    return cfg.window if kind == "local" else 0
+def _mask(cfg: ArchConfig, kind: str) -> tuple[int, int]:
+    """(window, chunk) of a ``kind`` layer, 0 = unbounded: ``cfg.window`` is
+    a local layer's sliding window and a chunked layer's chunk."""
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"{kind!r} is not an attention layer kind")
+    return (cfg.window if kind == "local" else 0,
+            cfg.window if kind == "chunked" else 0)
 
 
 def self_attention(
@@ -101,9 +103,9 @@ def self_attention(
     positions: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (attn output, (k, v)) — k/v reused for prefill cache writes."""
-    window = _window(cfg, kind)
+    window, chunk = _mask(cfg, kind)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+    o = ops.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                             softcap=cfg.attn_logit_softcap)
     return _out_proj(o, p["wo"]), (k, v)
 
@@ -125,9 +127,9 @@ def decode_self_attention(
     hold position ``pos - ((pos - i) % L)``; that is true of a prefill cache
     only when the prompt length is a multiple of L (the prefill keeps the
     last L keys in linear order), and the port keeps the reference's
-    semantics.
+    semantics.  A chunked layer's ring follows the local layer's rule.
     """
-    window = _window(cfg, kind)
+    window, chunk = _mask(cfg, kind)
     B = x.shape[0]
     L = k_cache.shape[1]
     positions = torch.tensor([pos], device=x.device)
@@ -146,7 +148,7 @@ def decode_self_attention(
     o = ops.decode_attention(
         q, k_cache, v_cache, slot_pos,
         torch.full((B,), pos, dtype=torch.long, device=x.device),
-        window=window, softcap=cfg.attn_logit_softcap)
+        window=window, chunk=chunk, softcap=cfg.attn_logit_softcap)
     return _out_proj(o, p["wo"]), k_cache, v_cache
 
 
@@ -172,3 +174,107 @@ def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     else:  # classic MLP; jax.nn.gelu defaults to the tanh form
         h = F.gelu(u, approximate="tanh")
     return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (the reference's t5x-style groups with a capacity per
+# group; dispatch and combine by index instead of one-hot products)
+# ---------------------------------------------------------------------------
+def moe_defs(cfg: ArchConfig) -> dict:
+    assert cfg.moe is not None
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    defs = {
+        "router": ParamDef((d, E), init_scale=0.1),
+        "w_gate": ParamDef((E, d, f)),
+        "w_up": ParamDef((E, d, f)),
+        "w_down": ParamDef((E, f, d)),
+    }
+    if cfg.moe.shared_expert:
+        defs["shared"] = ffn_defs(cfg)
+    return defs
+
+
+def _capacity(spec: MoESpec, group: int) -> int:
+    """Slots an expert has in a group of ``group`` tokens: a multiple of 4,
+    at least 4."""
+    c = math.ceil(group * spec.top_k * spec.capacity_factor / spec.n_experts)
+    return max(4, math.ceil(c / 4) * 4)
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """Routed expert FFN, the reference's function.  Returns (output, aux).
+
+    The B*S tokens fall into groups of G, the largest divisor of B*S not
+    above ``group_size``.  Each token picks its top-K experts by router
+    probability (ties go to the lower expert, as ``lax.top_k`` gives them),
+    its gates renormalised over the K.  An expert takes C slots a group, in
+    the order of the group's (token, k) slots; later ones are dropped.
+
+    Instead of the reference's one-hot dispatch and combine products, an
+    integer table gives each (expert, group, slot) its token row (a zero row
+    when empty), the rows are gathered into an (E, groups * C, d) buffer, the
+    experts run as batched matmuls over E, and each token gathers its K
+    outputs and sums them over k in order in f32, weighted by its gates
+    rounded to x's dtype as the reference rounds them.  No float is summed by
+    a scatter, so the result does not depend on the order of the card's
+    threads.
+    """
+    spec = cfg.moe
+    assert spec is not None
+    B, S, d = x.shape
+    E, K = spec.n_experts, spec.top_k
+    T = B * S
+    G = min(spec.group_size, T)
+    while T % G:  # largest divisor of T not exceeding group_size
+        G -= 1
+    ng = T // G
+    C = _capacity(spec, G)
+    dt, dev = x.dtype, x.device
+    xf = x.reshape(T, d)
+
+    logits = (xf.float() @ p["router"].float()).view(ng, G, E)
+    probs = torch.softmax(logits, dim=-1)
+    # top-K; a stable descending sort puts equal probabilities in expert order
+    idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
+    gates = probs.gather(-1, idx)  # (ng, G, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # a slot's place in its expert's queue: the running count over the
+    # group's (token, k) slots, token-major and k-minor
+    onehot = F.one_hot(idx, E)  # (ng, G, K, E)
+    pos = onehot.view(ng, G * K, E).cumsum(1).view(ng, G, K, E).gather(-1, idx[..., None])
+    pos = pos[..., 0] - 1
+    keep = pos < C
+    # each kept slot's row (expert, group, place) of the expert buffer; the
+    # dropped ones point one past its end, at a zero row
+    n_rows = E * ng * C
+    group = torch.arange(ng, device=dev).view(ng, 1, 1)
+    row = torch.where(keep, (idx * ng + group) * C + pos, n_rows)
+    token = (group * G + torch.arange(G, device=dev).view(1, G, 1)).expand(ng, G, K)
+    table = torch.full((n_rows + 1,), T, dtype=torch.long, device=dev)
+    table[row.reshape(-1)] = token.reshape(-1)  # kept rows are distinct
+
+    x0 = torch.cat([xf, xf.new_zeros(1, d)])
+    xin = x0.index_select(0, table[:n_rows]).view(E, ng * C, d)
+    h = F.silu(torch.bmm(xin, p["w_gate"].to(dt))) * torch.bmm(xin, p["w_up"].to(dt))
+    eo = torch.bmm(h, p["w_down"].to(dt)).view(n_rows, d)
+    eo = torch.cat([eo, eo.new_zeros(1, d)])
+    row = row.view(T, K)
+    w = torch.where(keep, gates, 0.0).to(dt).float().view(T, K)
+    out = eo.index_select(0, row[:, 0]).float() * w[:, :1]
+    for k in range(1, K):
+        out = out + eo.index_select(0, row[:, k]).float() * w[:, k:k + 1]
+    out = out.to(dt).view(B, S, d)
+
+    if "shared" in p:
+        out = out + ffn(p["shared"], x)
+
+    # aux losses (Switch-style load balance + router z-loss)
+    me = probs.mean(dim=1)  # (ng, E) mean router probability
+    ce = onehot.sum(2).float().mean(dim=1)  # (ng, E) fraction routed, before capacity
+    lb_loss = (me * ce).sum(-1).mean() * E * spec.load_balance_loss
+    z = torch.logsumexp(logits, dim=-1)
+    z_loss = (z ** 2).mean() * spec.router_z_loss
+    dropped = 1.0 - keep.sum() / (ng * G * K)
+    aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss, "moe_dropped_frac": dropped}
+    return out, aux

@@ -5,12 +5,14 @@ Parameters are a flat dict keyed by the reference's checkpoint flatten paths
 (``embed``, ``groups/0/p0/attn/wq``, ``ln_f``, ``lm_head``), each block
 group's layers stacked on a leading ``repeats`` axis; :class:`Transformer`
 holds them as module parameters.  A ``for`` loop over the stacked layer index
-takes the place of ``lax.scan``.  Global- and local-attention layers (dense
-FFN), RWKV-6 layers and RG-LRU layers are ported; every other feature
-raises ``NotImplementedError`` when the model is built.  Each of them
-serves and trains (``loss_fn``): attention through the ``FlashAttention``
-Function, RWKV-6 through ``WKV6`` and RG-LRU through ``RGLRU``, each a
-forward kernel and a backward kernel on the card.
+takes the place of ``lax.scan``.  Global-, local- and chunked-attention
+layers (dense or MoE FFN), RWKV-6 layers and RG-LRU layers are ported;
+every other feature raises ``NotImplementedError`` when the model is
+built.  Each of them serves and trains (``loss_fn``): attention through the
+``FlashAttention`` Function, RWKV-6 through ``WKV6`` and RG-LRU through
+``RGLRU``, each a forward kernel and a backward kernel on the card.  The
+MoE FFN's aux losses are summed over the layers as the reference's scan
+carries them (``AUX_KEYS``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN_KINDS, ArchConfig
 from repro_torch.models import params as pmod
 from repro_torch.models import recurrent
 from repro_torch.models.layers import (
@@ -30,6 +32,8 @@ from repro_torch.models.layers import (
     decode_self_attention,
     ffn,
     ffn_defs,
+    moe_defs,
+    moe_ffn,
     rms_norm,
     self_attention,
 )
@@ -39,7 +43,8 @@ from repro_torch.models.params import ParamDef
 # ---------------------------------------------------------------------------
 # Parameter definitions
 # ---------------------------------------------------------------------------
-PORTED_KINDS = ("global", "local", "rwkv", "rglru")  # each serves and trains
+PORTED_KINDS = ("global", "local", "chunked", "rwkv", "rglru")  # each serves and trains
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
 # recurrent kinds: (block, zero state); the block updates a given state in place
 RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
              "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}
@@ -51,12 +56,16 @@ def layer_defs(cfg: ArchConfig, kind: str) -> dict:
     if kind == "rglru":
         return recurrent.rglru_defs(cfg)
     d = cfg.d_model
-    return {
+    defs = {
         "ln1": ParamDef((d,), init="ones"),
         "attn": attention_defs(cfg),
         "ln2": ParamDef((d,), init="ones"),
-        "ffn": ffn_defs(cfg),
     }
+    if cfg.moe is not None:
+        defs["moe"] = moe_defs(cfg)
+    else:
+        defs["ffn"] = ffn_defs(cfg)
+    return defs
 
 
 def _stack(defs: Any, n: int) -> Any:
@@ -66,10 +75,9 @@ def _stack(defs: Any, n: int) -> Any:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every feature outside the ported slices: dense global and
-    local attention, RWKV-6 and RG-LRU."""
+    """Raise for every feature outside the ported slices: global, local and
+    chunked attention with a dense or MoE FFN, RWKV-6 and RG-LRU."""
     unsupported = {
-        "MoE": cfg.moe is not None,
         "enc_dec": cfg.enc_dec,
         "n_patches": cfg.n_patches > 0,
         "attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
@@ -120,34 +128,47 @@ def _layers(params: dict[str, torch.Tensor], prefix: str, repeats: int) -> list[
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
+def _ffn_out(cfg: ArchConfig, p: dict, hn: torch.Tensor):
+    """The layer's FFN on the normed stream: (out, aux (len(AUX_KEYS),) f32
+    for an MoE FFN, else None)."""
+    if "moe" not in p:
+        return ffn(p["ffn"], hn), None
+    out, aux = moe_ffn(p["moe"], hn, cfg)
+    return out, torch.stack([aux[k].float() for k in AUX_KEYS])
+
+
 def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
                 causal: bool = True, positions: Optional[torch.Tensor] = None,
                 state: Optional[dict] = None):
-    """Full-sequence layer. Returns (h, cache entry): {"k", "v"} (the last
-    ``kv_cache_len`` positions) for attention, the final state for rwkv and
-    rglru (written into ``state`` when it is given, zeros on entry)."""
+    """Full-sequence layer. Returns (h, aux, cache entry): aux as
+    ``_ffn_out`` gives it (None outside an MoE FFN); the entry {"k", "v"}
+    (the last ``kv_cache_len`` positions) for attention, the final state for
+    rwkv and rglru (written into ``state`` when it is given, zeros on
+    entry)."""
     if kind in RECURRENT:
-        return RECURRENT[kind][0](p, h, cfg, state=state)
+        h, entry = RECURRENT[kind][0](p, h, cfg, state=state)
+        return h, None, entry
     a_out, (k, v) = self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         causal=causal, positions=positions)
     h = h + a_out
-    h = h + ffn(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    f_out, aux = _ffn_out(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
     L = cfg.kv_cache_len(kind, k.shape[1])
-    return h, {"k": k[:, -L:], "v": v[:, -L:]}
+    return h + f_out, aux, {"k": k[:, -L:], "v": v[:, -L:]}
 
 
 def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
                        cache: dict, pos: int):
-    """One-token layer. Updates ``cache`` in place and returns (h, cache)."""
+    """One-token layer. Updates ``cache`` in place and returns (h, cache);
+    an MoE FFN's aux is dropped, as the reference drops it."""
     if kind in RECURRENT:
         return RECURRENT[kind][0](p, h, cfg, state=cache)
     a_out, cache["k"], cache["v"] = decode_self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         cache["k"], cache["v"], pos)
     h = h + a_out
-    h = h + ffn(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps))
-    return h, cache
+    f_out, _ = _ffn_out(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + f_out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +197,14 @@ def _remat(cfg: ArchConfig) -> bool:
 
 def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool = True,
                positions: Optional[torch.Tensor] = None, collect_cache: bool = False):
-    """Apply all block groups. Returns (h, caches|None); each group's cache
-    is {"p{i}": entry}, each tensor of the layer's entry ({"k", "v"}, {"S",
-    "ts1", "ts2"} or {"h", "conv"}) stacked over the group's layers. A
-    recurrent layer's state is written straight into its slice of the
-    stack."""
+    """Apply all block groups. Returns (h, aux, caches|None): aux the MoE
+    FFNs' ``AUX_KEYS`` summed over the layers, f32 (zeros without MoE);
+    each group's cache is {"p{i}": entry}, each tensor of the layer's entry
+    ({"k", "v"}, {"S", "ts1", "ts2"} or {"h", "conv"}) stacked over the
+    group's layers. A recurrent layer's state is written straight into its
+    slice of the stack."""
     caches = []
+    aux = torch.zeros((len(AUX_KEYS),), dtype=torch.float32, device=h.device)
     remat = not collect_cache and _remat(cfg)
     for g, (pattern, repeats) in enumerate(cfg.block_groups):
         cache_g = {}
@@ -191,8 +214,10 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                 apply = functools.partial(apply_layer, cfg, kind, causal=causal,
                                           positions=positions)
                 if not collect_cache:
-                    h = (checkpoint(apply, layers[i][r], h, use_reentrant=False) if remat
-                         else apply(layers[i][r], h))[0]
+                    h, a, _ = (checkpoint(apply, layers[i][r], h, use_reentrant=False) if remat
+                               else apply(layers[i][r], h))
+                    if a is not None:
+                        aux = aux + a
                     continue
                 state = None
                 if kind in RECURRENT:
@@ -200,7 +225,9 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                         cache_g[f"p{i}"] = RECURRENT[kind][1](
                             cfg, h.shape[0], h.device, stack=repeats)
                     state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
-                h, entry = apply(layers[i][r], h, state=state)
+                h, a, entry = apply(layers[i][r], h, state=state)
+                if a is not None:
+                    aux = aux + a
                 if kind in RECURRENT:
                     continue
                 if r == 0:
@@ -210,17 +237,17 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                 for name, t in entry.items():
                     cache_g[f"p{i}"][name][r] = t
         caches.append(cache_g)
-    return h, (caches if collect_cache else None)
+    return h, aux, (caches if collect_cache else None)
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *, dtype: torch.dtype,
             collect_cache: bool = False):
-    """tokens (B, S) -> (final-normed h in ``dtype``, caches|None)."""
+    """tokens (B, S) -> (final-normed h in ``dtype``, aux, caches|None)."""
     h = embed_tokens(params, tokens, dtype)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = run_groups(params, cfg, h, causal=True, positions=positions,
-                           collect_cache=collect_cache)
-    return rms_norm(h, params["ln_f"], cfg.norm_eps), caches
+    h, aux, caches = run_groups(params, cfg, h, causal=True, positions=positions,
+                                collect_cache=collect_cache)
+    return rms_norm(h, params["ln_f"], cfg.norm_eps), aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +298,9 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
             dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
     """Scalar training loss and metrics; batch["tokens"] is (B, S + 1),
-    shifted into inputs and labels; batch["mask"] (B, S) is optional."""
+    shifted into inputs and labels; batch["mask"] (B, S) is optional.  With
+    an MoE FFN the loss adds (load balance + router z) / the attention
+    layers' count, and the metrics carry the three aux means over them."""
     check_supported(cfg)
     params = cast_params(params, dtype)
     tokens = batch["tokens"]
@@ -279,15 +308,21 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    h, _ = forward(params, cfg, tokens[:, :-1], dtype=dtype)
+    h, aux, _ = forward(params, cfg, tokens[:, :-1], dtype=dtype)
     loss, metrics = lm_loss(params, cfg, h, labels, mask)
+    if cfg.moe is not None:
+        n = float(max(cfg.count_kind(*ATTN_KINDS), 1))
+        lb, zl, dropped = aux.unbind()
+        loss = loss + (lb + zl) / n
+        metrics.update(moe_lb_loss=lb / n, moe_z_loss=zl / n, moe_dropped=dropped / n)
     metrics["loss"] = loss
     return loss, metrics
 
 
 class Transformer(nn.Module):
-    """Decoder-only model (global or local attention, RWKV-6 and RG-LRU
-    layers) with stacked per-group weights, for serving.
+    """Decoder-only model (global, local or chunked attention with a dense
+    or MoE FFN, RWKV-6 and RG-LRU layers) with stacked per-group weights,
+    for serving.
 
     ``dtype`` is the compute dtype and the dtype of the weights and caches;
     the weights are frozen.  Weights are random from ``seed``;
@@ -326,9 +361,11 @@ class Transformer(nn.Module):
         return h, cache_groups
 
     def forward(self, tokens: torch.Tensor, *, collect_cache: bool = False):
-        """tokens (B, S) -> (final-normed h, caches|None)."""
-        return forward(self.flat, self.cfg, tokens, dtype=self.dtype,
-                       collect_cache=collect_cache)
+        """tokens (B, S) -> (final-normed h, caches|None); serving drops the
+        MoE aux."""
+        h, _, caches = forward(self.flat, self.cfg, tokens, dtype=self.dtype,
+                               collect_cache=collect_cache)
+        return h, caches
 
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One decode step. tokens (B, 1). Returns (logits, cache); the

@@ -70,6 +70,15 @@ BF16_CASES = [
     (1, 512, 4, 2, 128, True, 0, 0, 30.0),      # softcap at d_head 128
     (1, 333, 4, 1, 256, True, 0, 0, 0.0),       # ragged S at d_head 256
     (1, 200, 2, 2, 64, False, 0, 100, 0.0),     # chunk without causal
+    # the prefill shapes of the configs that run no other kernel, at B 1:
+    # GQA 6, 5 and MQA 48 at D 128, GQA 2 at D 256 with qk_norm's inputs
+    (1, 2048, 48, 8, 128, True, 4096, 0, 0.0),  # mixtral-8x22b (window > S)
+    (1, 2048, 40, 8, 128, True, 0, 8192, 0.0),  # llama4-scout-17b-a16e (chunk > S)
+    (1, 2048, 40, 8, 128, True, 0, 512, 0.0),   # llama4-scout, a chunk inside S
+    (1, 2048, 8, 4, 256, True, 1024, 0, 0.0),   # gemma3-4b local
+    (1, 2048, 8, 4, 256, True, 0, 0, 0.0),      # gemma3-4b global
+    (1, 2048, 48, 1, 128, True, 0, 0, 0.0),     # granite-20b (MQA)
+    (1, 2048, 24, 2, 128, True, 0, 0, 0.0),     # starcoder2-3b
 ]
 
 
@@ -561,7 +570,9 @@ def test_recurrentgemma_training_on_card_goes_through_the_kernels(cuda):
     assert all(torch.isfinite(g).all() for g in grads)
 
 
-@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b",
+                                  "gemma3-4b", "granite-20b", "starcoder2-3b",
+                                  "mixtral-8x22b", "llama4-scout-17b-a16e"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     cfg = smoke_config(get_arch(arch))
     cpu = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2)
@@ -655,6 +666,19 @@ BWD_CASES = [
     (1, 300, 8, 1, 256, True, 0, 100, 0.0),     # chunk of 100
     (2, 130, 2, 2, 256, True, 0, 0, 30.0),      # softcap, G 1: no head split
 ]
+# the head ratios of gemma3-4b, granite-20b, mixtral-8x22b and
+# llama4-scout-17b-a16e: G 6 with a window and G 5 with a chunk at D 128,
+# MQA 48/1 at D 128 (a key's dK and dV sum 48 heads), G 2 at D 256 with a
+# window.  f32 is held as BWD_CASES are; bf16 to the bound of its own
+# rounding, 2^-8 (sum |terms| + |want|) + 1e-5 (_bwd_terms; chip_smoke.py
+# holds the D 256 backward so): rounding P and dS to bf16 alone moves a dV
+# of the MQA case by more than 0.02 + 2^-7 |want| on the CPU too.
+RATIO_BWD_CASES = [
+    (1, 300, 12, 2, 128, True, 100, 0, 0.0),
+    (1, 300, 10, 2, 128, True, 0, 128, 0.0),
+    (1, 256, 48, 1, 128, True, 0, 0, 0.0),
+    (1, 512, 8, 4, 256, True, 200, 0, 0.0),
+]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -697,6 +721,59 @@ def test_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         _assert_bwd_close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bwd_terms(q, k, v, o, lse, do, *, causal, window, chunk, softcap):
+    """sum |terms| of each element of (dq, dk, dv) = (dS K, dS^T Q, P^T dO)
+    in f64, P and dS as ref.flash_bwd_ref forms them (no softcap)."""
+    import math
+
+    assert softcap == 0
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G, scale, f64 = H // KV, 1.0 / math.sqrt(D), torch.float64
+    qf = q.to(f64).reshape(B, S, KV, G, D)
+    kf, vf = k.to(f64), v.to(f64)
+    dof = do.to(f64).reshape(B, S, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    pos = torch.arange(S, device=q.device)
+    m = ref._mask(pos, pos, causal=causal, window=window, chunk=chunk)
+    p = torch.where(m, torch.exp(s - lse.to(f64).reshape(B, KV, G, S)[..., None]), 0.0)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.to(f64).reshape(B, S, KV, G, D))
+    tv = torch.einsum("bkgqs,bqkgd->bskd", p, dof.abs())
+    ds = (p * (torch.einsum("bqkgd,bskd->bkgqs", dof, vf) - delta[..., None]) * scale).abs()
+    tq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf.abs()).reshape(B, S, H, D)
+    tk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf.abs())
+    return tq, tk, tv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RATIO_BWD_CASES)
+def test_backward_kernel_at_the_new_head_ratios(cuda, case, dtype):
+    """The LSE forward and the backward at the head ratios of gemma3-4b,
+    granite-20b and the MoE configs: f32 as BWD_CASES; bf16 within its
+    rounding bound; two calls bit-identical."""
+    if dtype == torch.float32:
+        test_lse_forward_matches_plain(cuda, case, dtype)
+        test_backward_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype)
+        return
+    kw = dict(causal=case[5], window=case[6], chunk=case[7], softcap=case[8])
+    q, k, v = _qkv(case, dtype, cuda)
+    do = torch.flip(q, dims=(1,)).contiguous()
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    o_r, _ = ref.attention_lse_ref(q, k, v, **kw)
+    _assert_bwd_close(o, o_r, dtype)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+    terms = _bwd_terms(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, terms):
+        d = (g.double() - w.double()).abs()
+        lim = 2.0 ** -8 * (t + w.abs().double()) + 1e-5
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        assert bool((d <= lim).all()), float((d / lim).max())
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -823,3 +900,80 @@ def test_faulted_rwkv_training_on_card_ends_bit_identical_to_clean(cuda, tmp_pat
                                 CUBLAS_WORKSPACE_CONFIG=":4096:8"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.startswith("identical ")
+
+
+# -- the MoE FFN and chunked layers (mixtral-8x22b, llama4-scout-17b-a16e) -----
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_training_on_card_matches_cpu(cuda, arch):
+    """Smoke MoE models' loss, aux metrics and gradients on the card in f32
+    (the flash kernels on every attention layer) against the CPU's plain
+    path: 1e-5 on the loss and metrics, 1e-4 on the gradients."""
+    cfg = smoke_config(get_arch(arch)).replace(window=16)
+    n_attn = cfg.n_layers
+    params = pmod.materialize(transformer.model_defs(cfg), seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (2, 65)))
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        fa.lse_launches = fa.bwd_launches = 0
+        loss, metrics = transformer.loss_fn(leaves, cfg, {"tokens": tokens.to(dev)},
+                                            dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append(({k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads]))
+    assert (fa.lse_launches, fa.bwd_launches) == (2 * n_attn, n_attn)
+    for k, v in out[0][0].items():
+        assert abs(out[1][0][k] - v) <= 1e-5, k
+    for a, b in zip(out[0][1], out[1][1]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
+
+
+def test_moe_ffn_on_card_repeats_bit_for_bit(cuda):
+    """The MoE FFN in bf16 on the card at a full-width group (1024 tokens,
+    mixtral-8x22b's experts at a cut width): no float is summed by a
+    scatter, so two calls give the same bits."""
+    from repro_torch.models import layers
+
+    cfg = get_arch("mixtral-8x22b").replace(d_model=512, d_ff=1024)
+    p = {k: v.to(cuda, torch.bfloat16) for k, v in
+         pmod.materialize(layers.moe_defs(cfg), seed=3).items()}
+    p = {k: v for k, v in p.items() if "/" not in k}
+    x = torch.randn((4, 2048, 512), device=cuda).bfloat16()
+    a, aux = layers.moe_ffn(p, x, cfg)
+    b, _ = layers.moe_ffn(p, x, cfg)
+    assert torch.equal(a, b) and torch.isfinite(a.float()).all()
+    assert 0.0 <= float(aux["moe_dropped_frac"]) < 1.0
+
+
+def test_moe_training_on_card_is_deterministic(cuda, tmp_path):
+    """A faulted smoke mixtral-8x22b run ends on the clean run's bits under
+    the trainer's deterministic algorithms: the backward of the MoE's
+    gathers is accepted there."""
+    base = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    r = subprocess.run([sys.executable, "-c", FAULTED_VS_CLEAN, str(tmp_path), "mixtral-8x22b"],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(base, PYTHONPATH=str(ROOT / "src"),
+                                CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("identical ")
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e", "gemma3-4b"])
+def test_server_on_card_launches_flash_per_attention_layer(cuda, arch):
+    """Local, global and chunked layers alike: flash once per attention
+    layer per prefill, each with its own mask; a faulted run replays to the
+    same tokens."""
+    cfg = smoke_config(get_arch(arch))
+    scfg = ServeConfig(batch=2, prompt_len=64, max_new_tokens=6)
+    mask = {"global": (0, 0), "local": (cfg.window, 0), "chunked": (0, cfg.window)}
+    want = {m: sum(mask[k] == m for k in cfg.layer_kinds()) for m in set(mask.values())}
+    want = {m: n for m, n in want.items() if n}
+    fa.launches = 0
+    fa.mask_launches.clear()
+    clean = Server(cfg, scfg).run()
+    assert fa.launches == cfg.n_layers and fa.mask_launches == want
+    fa.launches = 0
+    fa.mask_launches.clear()
+    faulted = Server(cfg, scfg, FaultInjector(schedule={3: InjectedFault("pcie_errors")})).run()
+    assert fa.launches == 2 * cfg.n_layers and faulted.retries == 1
+    assert fa.mask_launches == {m: 2 * n for m, n in want.items()}
+    np.testing.assert_array_equal(clean.outputs, faulted.outputs)

@@ -115,11 +115,60 @@ def test_decode_self_attention_matches_and_updates_ring_slot():
 
 
 def test_unported_kinds_raise():
+    """Every attention kind is ported (chunked too); a kind that is not an
+    attention kind raises rather than attending unmasked."""
     _, tcfg = _pair("rsc-llm")
     x = torch.zeros((1, 4, tcfg.d_model))
     p = _t(_weights(tl.attention_defs(tcfg), np.random.default_rng(5)))
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tl.self_attention(p, x, tcfg, "chunked")
+    for kind in ("rglru", "rwkv"):
+        with pytest.raises(ValueError, match=kind):
+            tl.self_attention(p, x, tcfg, kind)
+    out, _ = tl.self_attention(p, x, tcfg, "chunked")
+    assert out.shape == x.shape
+
+
+# -- chunked attention: smoke llama4-scout-17b-a16e, chunk (its window) 16 --
+@pytest.mark.parametrize("S", [40, 48])
+def test_chunked_self_attention_matches(S):
+    jcfg, tcfg = _pair("llama4-scout-17b-a16e")
+    jcfg, tcfg = (dataclasses.replace(c, window=16) for c in (jcfg, tcfg))
+    rng = np.random.default_rng(9)
+    p = _weights(tl.attention_defs(tcfg), rng)
+    x = rng.standard_normal((2, S, tcfg.d_model)).astype(np.float32)
+    pos = np.arange(S)
+    got, (gk, gv) = tl.self_attention(_t(p), torch.from_numpy(x), tcfg, "chunked",
+                                      positions=torch.from_numpy(pos))
+    want, (wk, wv) = jax.jit(jl.self_attention, static_argnums=(2, 3))(
+        _j(p), jnp.asarray(x), jcfg, "chunked", positions=jnp.asarray(pos))
+    for a, b in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    glob, _ = tl.self_attention(_t(p), torch.from_numpy(x), tcfg, "global",
+                                positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(glob.numpy()[:, :16], got.numpy()[:, :16], atol=ATOL)
+    assert not np.allclose(glob.numpy()[:, 16:], got.numpy()[:, 16:], atol=1e-3)
+
+
+@pytest.mark.parametrize("pos", [10, 15, 16, 21, 47])
+def test_chunked_decode_matches_on_the_ring(pos):
+    """A chunk-long ring: within the first chunk, at a chunk's first
+    position (it attends to itself alone), and wrapped."""
+    jcfg, tcfg = _pair("llama4-scout-17b-a16e")
+    jcfg, tcfg = (dataclasses.replace(c, window=16) for c in (jcfg, tcfg))
+    rng = np.random.default_rng(10)
+    p = _weights(tl.attention_defs(tcfg), rng)
+    B, L = 2, tcfg.kv_cache_len("chunked", 10_000)
+    assert L == 16
+    x = rng.standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
+    kc = rng.standard_normal((B, L, tcfg.n_kv_heads, tcfg.d_head)).astype(np.float32)
+    vc = rng.standard_normal((B, L, tcfg.n_kv_heads, tcfg.d_head)).astype(np.float32)
+    got, gk, gv = tl.decode_self_attention(
+        _t(p), torch.from_numpy(x), tcfg, "chunked",
+        torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()), pos)
+    want, wk, wv = jax.jit(jl.decode_self_attention, static_argnums=(2, 3))(
+        _j(p), jnp.asarray(x), jcfg, "chunked", jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(pos, jnp.int32))
+    for a, b in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
 
 
 # -- local (sliding-window) attention: smoke recurrentgemma-9b, MQA, window 64 --

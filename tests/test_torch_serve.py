@@ -2,16 +2,24 @@
 same weights, and the port's Server on the CPU.
 
 A subprocess with REPRO_COMPUTE_DTYPE=float32 (read when repro is imported)
-materializes JAX params for smoke rsc-llm, qwen3-0.6b, rwkv6-7b and
-recurrentgemma-9b, cast to bf16 as the JAX Server casts them, runs prefill +
-6 greedy decode steps and the JAX Server, and saves weights (checkpoint
-encoding), logits and tokens to an npz; for recurrentgemma-9b it also saves
-one decode step after prompts of 32, 64 and 80 tokens (its local ring at
-window 64).  The port loads the same weights and runs in f32 on the CPU.
+materializes JAX params for smoke rsc-llm, qwen3-0.6b, rwkv6-7b,
+recurrentgemma-9b, gemma3-4b, granite-20b, starcoder2-3b, mixtral-8x22b and
+llama4-scout-17b-a16e, cast to bf16 as the JAX Server casts them, runs
+prefill + 6 greedy decode steps and the JAX Server, and saves weights
+(checkpoint encoding), logits and tokens to an npz; for recurrentgemma-9b it
+also saves one decode step after prompts of 32, 64 and 80 tokens (its local
+ring at window 64), and for llama4-scout-17b-a16e prefill + 6 decode steps
+with chunks of 8 and 12 over the 16-token prompt (CHUNKS).  The port loads
+the same weights and runs in f32 on the CPU.
 Tolerance 1e-4 on logits: two layers of f32 matmuls summed in different
 orders by two frameworks.  Greedy tokens must be equal.
 """
 import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
 import textwrap
 
 import jax
@@ -33,7 +41,9 @@ from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from tests.conftest import run_subprocess_py
 
-ARCHS = ("rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b")
+ARCHS = ("rsc-llm", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b", "gemma3-4b",
+         "granite-20b", "starcoder2-3b", "mixtral-8x22b", "llama4-scout-17b-a16e")
+CHUNKS = (8, 12)  # llama4-scout's chunked layers: a chunk that divides S = 16, one that does not
 RING_PROMPTS = (32, 64, 80)  # below, at and past the smoke window of 64
 N_DECODE = 6
 ATOL = 1e-4
@@ -78,6 +88,17 @@ JAX_SCRIPT = textwrap.dedent("""
                 logits, _ = decode(params, cache, jnp.asarray(toks[:, S:]))
                 out[f"ring/{S}/tokens"] = toks
                 out[f"ring/{S}/decode"] = np.asarray(logits, np.float32)
+        if arch == "llama4-scout-17b-a16e":
+            for chunk in %(chunks)r:
+                ccfg = cfg.replace(window=chunk)
+                logits, cache = jax.jit(make_prefill_step(ccfg))(params, {"tokens": jnp.asarray(tokens)})
+                cdecode = jax.jit(make_decode_step(ccfg))
+                seq = [logits]
+                for _ in range(%(n)d):
+                    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+                    logits, cache = cdecode(params, cache, tok[:, None])
+                    seq.append(logits)
+                out[f"chunk/{chunk}/logits"] = np.stack([np.asarray(l, np.float32) for l in seq])
     np.savez(%(path)r, **out)
 """)
 
@@ -86,7 +107,7 @@ JAX_SCRIPT = textwrap.dedent("""
 def jax_run(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("jax_serve") / "ref.npz")
     r = run_subprocess_py(JAX_SCRIPT % {"archs": ARCHS, "n": N_DECODE, "path": path,
-                                        "ring": RING_PROMPTS},
+                                        "ring": RING_PROMPTS, "chunks": CHUNKS},
                           env_extra={"REPRO_COMPUTE_DTYPE": "float32",
                                      "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr[-3000:]
@@ -125,6 +146,26 @@ def test_prefill_and_decode_match_jax(jax_run, arch):
     np.testing.assert_allclose(logits, jax_run[f"{arch}/logits"], atol=ATOL)
     np.testing.assert_array_equal(greedy, jax_run[f"{arch}/greedy"])
     assert cache["pos"] == tokens.shape[1] + N_DECODE
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_chunked_layers_prefill_and_decode_match_jax(jax_run, chunk):
+    """llama4-scout's chunked layers with a chunk shorter than the prompt:
+    the prefill masks attention to each query's chunk, and decode attends
+    within the chunk of its position over the ring of the last min(chunk,
+    S) keys, as the reference does (ring slots by the local layers' rule,
+    exact when S is a multiple of the chunk, as 8 is; 12 is not, and the
+    port keeps the reference's answer there too)."""
+    arch = "llama4-scout-17b-a16e"
+    model = _port_model(jax_run, arch)
+    model.cfg = model.cfg.replace(window=chunk)
+    assert model.cfg.kv_cache_len("chunked", 16) == chunk
+    tokens = torch.from_numpy(jax_run[f"{arch}/tokens"]).long()
+    logits, _, cache = _port_greedy(model, tokens, N_DECODE)
+    np.testing.assert_allclose(logits, jax_run[f"chunk/{chunk}/logits"], atol=ATOL)
+    assert cache["groups"][0]["p0"]["k"].shape[2] == chunk
+    # the chunk is a real mask: the full prompt's logits move
+    assert np.abs(logits[0] - jax_run[f"{arch}/logits"][0]).max() > 1e-3
 
 
 def test_convert_takes_uint16_and_float32_bf16(jax_run):
@@ -203,15 +244,29 @@ def test_server_output_deterministic(cfg):
     assert r2.retries == 1
 
 
+MOE = MoESpec(n_experts=4, top_k=2, capacity_factor=1.25, group_size=64)
+
+
 @pytest.mark.parametrize("feature", [
     dict(attn_logit_softcap=30.0), dict(enc_dec=True), dict(n_patches=4),
-    dict(block_groups=((("chunked",), 2),), window=8),
-    # mixtral-8x22b's MoE FFN at smoke size (8 experts top-2 -> 4, group 64)
-    dict(moe=MoESpec(n_experts=4, top_k=2, capacity_factor=1.25, group_size=64)),
+    # chunked layers and the MoE FFN are ported; beside an unported
+    # feature the model still raises
+    dict(block_groups=((("chunked",), 2),), window=8, attn_logit_softcap=30.0),
+    dict(moe=MOE, n_patches=4),
 ])
 def test_unported_features_raise(cfg, feature):
     with pytest.raises(NotImplementedError):
         Transformer(cfg.replace(**feature), device="cpu")
+
+
+@pytest.mark.parametrize("feature", [
+    dict(block_groups=((("chunked",), 2),), window=8),
+    # mixtral-8x22b's MoE FFN at smoke size (8 experts top-2 -> 4, group 64)
+    dict(moe=MOE),
+])
+def test_chunked_layers_and_moe_build(cfg, feature):
+    model = Transformer(cfg.replace(**feature), device="cpu")
+    assert ("groups/0/p0/moe/router" in model.flat) == ("moe" in feature)
 
 
 def test_materialize_keeps_the_reference_init_rule():
@@ -224,7 +279,8 @@ def test_materialize_keeps_the_reference_init_rule():
     assert torch.equal(a["w"], b["w"]) and torch.equal(a["g"], torch.ones(8))
     assert abs(a["w"].std().item() * (4 * 64) ** 0.5 - 1.0) < 0.02
     flats = {}
-    for arch in ("qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b"):
+    for arch in ("qwen3-0.6b", "rwkv6-7b", "recurrentgemma-9b", "mixtral-8x22b",
+                 "llama4-scout-17b-a16e", "gemma3-4b", "granite-20b"):
         jdefs = jtransformer.model_defs(jsmoke(jget_arch(arch)))
         tdefs = model_defs(smoke_config(get_arch(arch)))
         jflat = _flatten(jdefs)  # ParamDefs are leaves of the JAX tree
@@ -253,6 +309,21 @@ def test_materialize_keeps_the_reference_init_rule():
             a = np.exp(-8.0 * np.logaddexp(lam, 0.0))
             assert 0.9 - 1e-5 <= a.min() and a.max() <= 0.999 + 1e-5
             assert abs(a.mean() - 0.9495) < 0.005
+
+
+def test_convert_loads_moe_strictly(jax_run):
+    """Every MoE key (router, experts, the shared expert) crosses over
+    strictly, as the rest does."""
+    flat = _sub(jax_run, "llama4-scout-17b-a16e/params/")
+    model = Transformer(smoke_config(get_arch("llama4-scout-17b-a16e")), device="cpu",
+                        dtype=torch.float32)
+    assert set(flat) == set(model.flat)
+    assert {"groups/0/p0/moe/router", "groups/0/p0/moe/w_gate", "groups/0/p0/moe/w_up",
+            "groups/0/p0/moe/w_down", "groups/0/p0/moe/shared/w_gate"} <= set(flat)
+    convert.load_into(model, flat)
+    assert tuple(model.flat["groups/0/p0/moe/w_down"].shape) == (2, 4, 128, 64)
+    with pytest.raises(RuntimeError, match="Missing"):
+        convert.load_into(model, {k: v for k, v in flat.items() if k != "groups/0/p0/moe/router"})
 
 
 def test_convert_loads_recurrentgemma_strictly(jax_run):
@@ -291,3 +362,19 @@ def test_port_reproduces_local_ring_fault(jax_run, S):
         np.testing.assert_allclose(got.numpy(), full.numpy(), atol=ATOL)
     else:
         assert (got - full).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_serve_launcher_takes_the_moe_archs_on_cpu(arch):
+    """``launch/serve.py --arch <MoE arch> --smoke --device cpu`` serves
+    every request, a decode crash replayed included."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
+           "--device", "cpu", "--batch", "2", "--prompt-len", "16", "--new-tokens", "4",
+           "--inject-rate", "0.3", "--seed", "1"]
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rep = json.loads(r.stdout)
+    assert rep["arch"] == f"{arch}-smoke" and rep["requests"] == 2 and rep["tokens"] == 8

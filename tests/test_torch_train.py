@@ -16,10 +16,14 @@ reference differentiates its ``lax.scan`` oracle); and smoke
 recurrentgemma-9b, whose RG-LRU layers train through the ``RGLRU`` Function
 (the reference differentiates its associative scan) and whose local layers
 (MQA) through ``FlashAttention``, as configured (window 64 > S) and with
-window 16 < S.  The first two, rwkv6-7b and recurrentgemma-9b are also
-stepped with ``n_microbatches=2`` (tests/test_smoke_archs.py's microbatch
-check), and the reference's accumulated gradients are saved beside the
-step.
+window 16 < S; smoke gemma3-4b (local and global layers, qk_norm, tied
+embeddings, d_head 16 for its 256); smoke mixtral-8x22b (local layers and
+the MoE FFN, top-2, whose aux losses enter the loss and the metrics) and
+smoke llama4-scout-17b-a16e (chunked layers with a chunk of 16 < S, the MoE
+FFN top-1 with a shared expert).  The first two, rwkv6-7b,
+recurrentgemma-9b, gemma3-4b and mixtral-8x22b are also stepped with
+``n_microbatches=2`` (tests/test_smoke_archs.py's microbatch check), and the
+reference's accumulated gradients are saved beside the step.
 Tolerances: 1e-5 on the loss and the metrics, 1e-4 on every gradient (two
 layers of f32 matmuls and their backward summed in different orders by two
 frameworks).  After one AdamW step a weight moves by lr (g / (|g| + eps) +
@@ -56,9 +60,13 @@ CASES = {
     "rwkv6-7b": ("rwkv6-7b", {}, False),
     "recurrentgemma-9b": ("recurrentgemma-9b", {}, False),
     "recurrentgemma-9b-window": ("recurrentgemma-9b", {"window": 16}, False),
+    "gemma3-4b": ("gemma3-4b", {}, False),
+    "mixtral-8x22b": ("mixtral-8x22b", {}, False),
+    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {"window": 16}, False),
 }
 # cases also stepped with n_microbatches=2 (a microbatch of one row each)
-MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b", "recurrentgemma-9b")
+MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b", "recurrentgemma-9b",
+            "gemma3-4b", "mixtral-8x22b")
 B, S = 2, 32
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LR = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -312,6 +320,37 @@ def test_recurrentgemma_trains_through_the_launcher_on_cpu(tmp_path):
     assert rep["arch"] == "recurrentgemma-9b-smoke" and rep["final_step"] == 6
     assert rep["attempts"] >= 2 and 0.0 < rep["measured_ettr"] <= 1.0
     assert np.isfinite(rep["loss_first"]) and rep["loss_last"] < rep["loss_first"]
+
+
+def test_moe_metrics_reach_the_train_step():
+    """The MoE aux means leave loss_and_grads and the train step as the
+    reference's loss_fn reports them, beside the optimizer's metrics."""
+    cfg = _cfg("mixtral-8x22b")
+    params = pmod.materialize(transformer.model_defs(cfg), seed=0)
+    batch = _np_batch(cfg, b=2, s=32)
+    _, metrics, _ = loss_and_grads(cfg, params, batch, dtype=torch.float32)
+    assert {"moe_lb_loss", "moe_z_loss", "moe_dropped"} <= set(metrics)
+    _, _, m = make_train_step(cfg, adamw.AdamWConfig(**LR), dtype=torch.float32)(
+        params, adamw.init(params), batch)
+    assert {"moe_lb_loss", "moe_z_loss", "moe_dropped", "grad_norm", "lr"} <= set(m)
+    assert 0.0 <= float(m["moe_dropped"]) < 1.0 and float(m["moe_lb_loss"]) > 0.0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_trains_through_the_launcher_on_cpu(tmp_path, arch):
+    """``launch/train.py --arch <MoE arch> --smoke --device cpu`` trains
+    through the trainer, a crash and a restore included."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--smoke", "--device", "cpu", "--steps", "6", "--batch", "2", "--seq", "32",
+           "--ckpt-every", "2", "--inject-rate", "0.3", "--ckpt-dir", str(tmp_path / "ck")]
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rep = json.loads(r.stdout)
+    assert rep["arch"] == f"{arch}-smoke" and rep["final_step"] == 6
+    assert rep["attempts"] >= 2 and np.isfinite(rep["loss_first"])
+    assert rep["loss_last"] < rep["loss_first"]
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
