@@ -115,6 +115,62 @@ class ArchConfig:
     def count_kind(self, *kinds: str) -> int:
         return sum(1 for k in self.layer_kinds() if k in kinds)
 
+    # -- parameter accounting (the reference's, for logs and sizing) -------
+    def attn_params(self) -> int:
+        d = self.d_model
+        return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+
+    def ffn_params(self) -> int:
+        # SwiGLU: gate, up, down; classic MLP: up, down.
+        dense = (3 if self.ffn_gated else 2) * self.d_model * self.d_ff
+        if self.moe is None:
+            return dense
+        routed = self.moe.n_experts * dense + self.d_model * self.moe.n_experts
+        if self.moe.shared_expert:
+            routed += dense
+        return routed
+
+    def rglru_params(self) -> int:
+        assert self.rglru is not None
+        w = self.rglru.lru_width
+        d = self.d_model
+        conv = self.rglru.conv_width * w
+        gates = 2 * (w * w // self.rglru.n_heads)  # block-diagonal a/i gates
+        return 2 * d * w + w * d + conv + gates + 2 * w  # in(x2), out, conv, gates, lambda+bias
+
+    def rwkv_params(self) -> int:
+        assert self.rwkv is not None
+        d = self.d_model
+        r = self.rwkv.ddlerp_rank
+        time_mix = 4 * d * d + d * d  # r,k,v,g,out
+        ddlerp = 5 * (d * r + r * d) + 6 * d
+        decay = d * self.rwkv.decay_rank + self.rwkv.decay_rank * d + 2 * d
+        channel_mix = 2 * d * self.d_ff + 2 * d
+        return time_mix + ddlerp + decay + channel_mix
+
+    def _layer_params(self, kind: str) -> int:
+        norms = 2 * self.d_model
+        if kind in ATTN_KINDS:
+            return self.attn_params() + self.ffn_params() + norms
+        if kind == "rglru":
+            return self.rglru_params() + self.ffn_params() + norms
+        if kind == "rwkv":
+            return self.rwkv_params() + norms
+        raise ValueError(kind)
+
+    def param_count(self) -> int:
+        n = sum(self._layer_params(k) for k in self.layer_kinds())
+        n += self.vocab_size * self.d_model  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model  # lm head
+        n += self.d_model  # final norm
+        if self.enc_dec:
+            # encoder self-attn+ffn layers and decoder cross-attn additions
+            enc = self.n_enc_layers * (self.attn_params() + self.ffn_params() + 2 * self.d_model)
+            cross = self.count_kind(*ATTN_KINDS) * (self.attn_params() + self.d_model)
+            n += enc + cross + self.d_model
+        return n
+
     def kv_cache_len(self, kind: str, seq_len: int) -> int:
         if kind == "global":
             return seq_len
@@ -154,8 +210,9 @@ def _ensure_loaded() -> None:
 
     if _REGISTRY.get("__loaded__"):
         return
-    for mod in ("gemma3_4b", "granite_20b", "llama4_scout_17b_a16e", "mixtral_8x22b",
-                "qwen3_0_6b", "recurrentgemma_9b", "rsc_llm", "rwkv6_7b", "starcoder2_3b"):
+    for mod in ("gemma3_4b", "granite_20b", "llama4_scout_17b_a16e", "llava_next_34b",
+                "mixtral_8x22b", "qwen3_0_6b", "recurrentgemma_9b", "rsc_llm", "rwkv6_7b",
+                "seamless_m4t_large_v2", "starcoder2_3b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _REGISTRY["__loaded__"] = True  # type: ignore[assignment]
 

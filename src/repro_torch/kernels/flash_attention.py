@@ -41,7 +41,8 @@ _BIG = 1 << 30
 
 # kernel launches since the last reset; the CPU path does not count
 launches = 0      # forward without the LSE (serving)
-mask_launches: dict = {}  # those forward launches by mask, (window, chunk)
+mask_launches: dict = {}  # those forward launches by mask, (causal, window, chunk)
+cross_launches = 0  # those forward launches at Sq != Sk (cross-attention)
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
 BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
@@ -233,7 +234,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, D), k / v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
     Query and key positions both start at 0."""
-    global launches
+    global launches, cross_launches
     _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
@@ -241,7 +242,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o, _ = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
                     softcap=softcap, with_lse=False)
     launches += 1
-    mask_launches[(window, chunk)] = mask_launches.get((window, chunk), 0) + 1
+    mask = (bool(causal), window, chunk)
+    mask_launches[mask] = mask_launches.get(mask, 0) + 1
+    cross_launches += q.shape[1] != k.shape[1]
     return o
 
 

@@ -1,11 +1,13 @@
 """Compute ops used by the model, following ``repro.kernels.ops``.
 
-``flash_attention`` with Sq == Sk and q_offset == 0 always goes to the
-kernel wrappers (which take the plain versions only for CPU tensors): when
-grad is enabled and q, k or v requires grad, through ``FlashAttention``
-(forward with the LSE, backward kernel); otherwise (serving, under
-``inference_mode``) through the forward alone, which writes no LSE.  Other
-shapes run the plain version on the CPU and are not yet ported on CUDA.
+``flash_attention`` with q_offset == 0 and either Sq == Sk or no mask at
+all (not causal, no window, no chunk: cross-attention, any Sq and Sk)
+always goes to the kernel wrappers (which take the plain versions only for
+CPU tensors): when grad is enabled and q, k or v requires grad, through
+``FlashAttention`` (forward with the LSE, backward kernel); otherwise
+(serving, under ``inference_mode``) through the forward alone, which writes
+no LSE.  Other shapes (a mask at Sq != Sk, or q_offset != 0; no model path
+makes them) run the plain version on the CPU and are not ported on CUDA.
 ``decode_attention`` stays plain PyTorch, as the reference leaves it in jnp.
 ``wkv6`` and ``rglru`` always go to their kernel wrappers, with or without
 a state, like ``flash_attention``: when grad is enabled and an input
@@ -37,14 +39,16 @@ def flash_attention(
     softcap: float = 0.0,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    if q.shape[1] == k.shape[1] and q_offset == 0:
+    unmasked = not causal and window == 0 and chunk == 0
+    if q_offset == 0 and (q.shape[1] == k.shape[1] or unmasked):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return fa.FlashAttention.apply(q, k, v, causal, window, chunk, softcap)
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   chunk=chunk, softcap=softcap)
     if q.device.type != "cpu":
         raise NotImplementedError(
-            "flash_attention with Sq != Sk or q_offset != 0 is not ported to CUDA")
+            "flash_attention with a mask at Sq != Sk, or q_offset != 0, is not ported "
+            "to CUDA")
     return ref.attention_ref(q, k, v, causal=causal, window=window, chunk=chunk,
                              softcap=softcap, q_offset=q_offset)
 

@@ -44,7 +44,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
-def attention_defs(cfg: ArchConfig) -> dict:
+def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
+    """A layer's attention weights; a cross-attention layer has no q / k
+    norm."""
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     defs = {
         "wq": ParamDef((d, H, Dh)),
@@ -52,7 +54,7 @@ def attention_defs(cfg: ArchConfig) -> dict:
         "wv": ParamDef((d, KV, Dh)),
         "wo": ParamDef((H, Dh, d)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         defs["q_norm"] = ParamDef((Dh,), init="ones")
         defs["k_norm"] = ParamDef((Dh,), init="ones")
     return defs
@@ -70,11 +72,13 @@ def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ w.to(o.dtype).reshape(h * k, d)
 
 
-def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
+def _project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
                  positions: Optional[torch.Tensor]):
-    q = _heads_proj(x, p["wq"])
-    k = _heads_proj(x, p["wk"])
-    v = _heads_proj(x, p["wv"])
+    """q from ``xq``, k and v from ``xkv``; RoPE at ``positions`` unless it
+    is None (cross-attention)."""
+    q = _heads_proj(xq, p["wq"])
+    k = _heads_proj(xkv, p["wk"])
+    v = _heads_proj(xkv, p["wv"])
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -104,10 +108,43 @@ def self_attention(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (attn output, (k, v)) — k/v reused for prefill cache writes."""
     window, chunk = _mask(cfg, kind)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, x, cfg, positions)
     o = ops.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                             softcap=cfg.attn_logit_softcap)
     return _out_proj(o, p["wo"]), (k, v)
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,        # (B, S, d) pre-normed decoder stream
+    enc_out: torch.Tensor,  # (B, Se, d) encoder output
+    cfg: ArchConfig,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Decoder-to-encoder attention: no RoPE, no mask, no softcap (as the
+    reference calls it), any Se.  Returns (output, (k, v)), k / v the
+    encoder's, which the prefill caches."""
+    q, k, v = _project_qkv(p, x, enc_out, cfg, None)
+    o = ops.flash_attention(q, k, v, causal=False)
+    return _out_proj(o, p["wo"]), (k, v)
+
+
+def decode_cross_attention(
+    p: dict,
+    x: torch.Tensor,   # (B, 1, d)
+    xk: torch.Tensor,  # (B, Se, KV, Dh) cached encoder keys
+    xv: torch.Tensor,
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """One token's cross-attention over the cached encoder keys and values,
+    the reference's jnp in plain PyTorch: scores and softmax in f32, the
+    output in x's dtype."""
+    B, dt = x.shape[0], x.dtype
+    q = _heads_proj(x, p["wq"])  # (B, 1, H, Dh)
+    H, KV = q.shape[2], xk.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, cfg.d_head)
+    s = torch.einsum("bkgd,blkd->bkgl", qf, xk.float()) / math.sqrt(cfg.d_head)
+    o = torch.einsum("bkgl,blkd->bkgd", torch.softmax(s, dim=-1), xv.float())
+    return _out_proj(o.reshape(B, 1, H, cfg.d_head).to(dt), p["wo"])
 
 
 def decode_self_attention(
@@ -133,7 +170,7 @@ def decode_self_attention(
     B = x.shape[0]
     L = k_cache.shape[1]
     positions = torch.tensor([pos], device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, x, cfg, positions)
     slot = pos % L  # ring slot (== pos for a full-length global cache)
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v[:, 0].to(v_cache.dtype)

@@ -25,8 +25,9 @@ def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *, n_microbatches
     ``dtype``; the gradients are keyed as ``params``.
 
     ``n_microbatches > 1`` accumulates the gradients in f32 over sequential
-    slices of the batch and divides by n; the loss is the mean of the
-    slices' losses.
+    slices of the batch (every entry, frames and patches too, split along
+    its first axis) and divides by n; the loss is the mean of the slices'
+    losses.
     """
 
     def one(batch: dict):
@@ -89,11 +90,13 @@ def make_eval_step(cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16) -> C
 
 
 def make_prefill_step(model: Transformer) -> Callable:
-    """batch -> (next_token_logits (B, 1, V), cache {"pos", "groups"})."""
+    """batch (tokens, and frames or patches as ``transformer.forward`` takes
+    them) -> (next_token_logits (B, 1, V), cache {"pos", "groups"}); "pos"
+    is the joined length, patches included."""
 
     @torch.inference_mode()
     def prefill_step(batch: dict):
-        h, caches = model(batch["tokens"], collect_cache=True)
+        h, caches = model(batch, collect_cache=True)
         logits = model.unembed(h[:, -1:])
         return logits, {"pos": h.shape[1], "groups": caches}
 

@@ -5,14 +5,17 @@ Parameters are a flat dict keyed by the reference's checkpoint flatten paths
 (``embed``, ``groups/0/p0/attn/wq``, ``ln_f``, ``lm_head``), each block
 group's layers stacked on a leading ``repeats`` axis; :class:`Transformer`
 holds them as module parameters.  A ``for`` loop over the stacked layer index
-takes the place of ``lax.scan``.  Global-, local- and chunked-attention
-layers (dense or MoE FFN), RWKV-6 layers and RG-LRU layers are ported;
-every other feature raises ``NotImplementedError`` when the model is
-built.  Each of them serves and trains (``loss_fn``): attention through the
-``FlashAttention`` Function, RWKV-6 through ``WKV6`` and RG-LRU through
-``RGLRU``, each a forward kernel and a backward kernel on the card.  The
-MoE FFN's aux losses are summed over the layers as the reference's scan
-carries them (``AUX_KEYS``).
+takes the place of ``lax.scan``.  Every layer kind of the reference is
+ported: global-, local- and chunked-attention layers (dense or MoE FFN,
+logits optionally softcapped), RWKV-6 layers and RG-LRU layers, with the
+encoder-decoder form (a bidirectional encoder over stubbed frame
+embeddings, cross-attention in every decoder layer) and the VLM form
+(stubbed patch embeddings in front of the tokens).  Each of them serves
+and trains (``loss_fn``): attention through the ``FlashAttention``
+Function, RWKV-6 through ``WKV6`` and RG-LRU through ``RGLRU``, each a
+forward kernel and a backward kernel on the card.  The MoE FFN's aux
+losses are summed over the layers as the reference's scan carries them
+(``AUX_KEYS``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from repro_torch.models import params as pmod
 from repro_torch.models import recurrent
 from repro_torch.models.layers import (
     attention_defs,
+    cross_attention,
+    decode_cross_attention,
     decode_self_attention,
     ffn,
     ffn_defs,
@@ -50,7 +55,7 @@ RECURRENT = {"rwkv": (recurrent.rwkv_block, recurrent.rwkv_init_state),
              "rglru": (recurrent.rglru_block, recurrent.rglru_init_state)}
 
 
-def layer_defs(cfg: ArchConfig, kind: str) -> dict:
+def layer_defs(cfg: ArchConfig, kind: str, with_cross: bool = False) -> dict:
     if kind == "rwkv":
         return recurrent.rwkv_defs(cfg)
     if kind == "rglru":
@@ -65,6 +70,9 @@ def layer_defs(cfg: ArchConfig, kind: str) -> dict:
         defs["moe"] = moe_defs(cfg)
     else:
         defs["ffn"] = ffn_defs(cfg)
+    if with_cross:
+        defs["ln_x"] = ParamDef((d,), init="ones")
+        defs["xattn"] = attention_defs(cfg, cross=True)
     return defs
 
 
@@ -75,16 +83,7 @@ def _stack(defs: Any, n: int) -> Any:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every feature outside the ported slices: global, local and
-    chunked attention with a dense or MoE FFN, RWKV-6 and RG-LRU."""
-    unsupported = {
-        "enc_dec": cfg.enc_dec,
-        "n_patches": cfg.n_patches > 0,
-        "attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
-    }
-    for name, hit in unsupported.items():
-        if hit:
-            raise NotImplementedError(f"{cfg.name}: {name} is not ported yet")
+    """Raise for a layer kind the port does not know."""
     for kind in cfg.layer_kinds():
         if kind not in PORTED_KINDS:
             raise NotImplementedError(f"{cfg.name}: {kind!r} layers are not ported yet")
@@ -94,7 +93,8 @@ def model_defs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     groups = [
-        {f"p{i}": _stack(layer_defs(cfg, kind), repeats) for i, kind in enumerate(pattern)}
+        {f"p{i}": _stack(layer_defs(cfg, kind, with_cross=cfg.enc_dec), repeats)
+         for i, kind in enumerate(pattern)}
         for pattern, repeats in cfg.block_groups
     ]
     defs: dict[str, Any] = {
@@ -104,6 +104,11 @@ def model_defs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V))
+    if cfg.enc_dec:
+        defs["encoder"] = {
+            "blocks": _stack(layer_defs(cfg, "global"), cfg.n_enc_layers),
+            "ln_f": ParamDef((d,), init="ones"),
+        }
     return defs
 
 
@@ -139,12 +144,13 @@ def _ffn_out(cfg: ArchConfig, p: dict, hn: torch.Tensor):
 
 def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
                 causal: bool = True, positions: Optional[torch.Tensor] = None,
-                state: Optional[dict] = None):
+                state: Optional[dict] = None, enc_out: Optional[torch.Tensor] = None):
     """Full-sequence layer. Returns (h, aux, cache entry): aux as
     ``_ffn_out`` gives it (None outside an MoE FFN); the entry {"k", "v"}
-    (the last ``kv_cache_len`` positions) for attention, the final state for
-    rwkv and rglru (written into ``state`` when it is given, zeros on
-    entry)."""
+    (the last ``kv_cache_len`` positions) for attention, with the
+    cross-attention's encoder keys and values {"xk", "xv"} when ``enc_out``
+    is given; the final state for rwkv and rglru (written into ``state``
+    when it is given, zeros on entry)."""
     if kind in RECURRENT:
         h, entry = RECURRENT[kind][0](p, h, cfg, state=state)
         return h, None, entry
@@ -152,21 +158,30 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         causal=causal, positions=positions)
     h = h + a_out
+    entry = {}
+    if enc_out is not None:
+        x_out, (entry["xk"], entry["xv"]) = cross_attention(
+            p["xattn"], rms_norm(h, p["ln_x"], cfg.norm_eps), enc_out, cfg)
+        h = h + x_out
     f_out, aux = _ffn_out(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
     L = cfg.kv_cache_len(kind, k.shape[1])
-    return h + f_out, aux, {"k": k[:, -L:], "v": v[:, -L:]}
+    return h + f_out, aux, {"k": k[:, -L:], "v": v[:, -L:], **entry}
 
 
 def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
                        cache: dict, pos: int):
     """One-token layer. Updates ``cache`` in place and returns (h, cache);
-    an MoE FFN's aux is dropped, as the reference drops it."""
+    an MoE FFN's aux is dropped, as the reference drops it.  A cache with
+    encoder keys and values ("xk", "xv", read only) adds cross-attention."""
     if kind in RECURRENT:
         return RECURRENT[kind][0](p, h, cfg, state=cache)
     a_out, cache["k"], cache["v"] = decode_self_attention(
         p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), cfg, kind,
         cache["k"], cache["v"], pos)
     h = h + a_out
+    if "xk" in cache:
+        h = h + decode_cross_attention(p["xattn"], rms_norm(h, p["ln_x"], cfg.norm_eps),
+                                       cache["xk"], cache["xv"], cfg)
     f_out, _ = _ffn_out(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
     return h + f_out, cache
 
@@ -196,13 +211,15 @@ def _remat(cfg: ArchConfig) -> bool:
 
 
 def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool = True,
-               positions: Optional[torch.Tensor] = None, collect_cache: bool = False):
-    """Apply all block groups. Returns (h, aux, caches|None): aux the MoE
+               positions: Optional[torch.Tensor] = None, collect_cache: bool = False,
+               enc_out: Optional[torch.Tensor] = None):
+    """Apply all block groups, each attention layer cross-attending to
+    ``enc_out`` when it is given. Returns (h, aux, caches|None): aux the MoE
     FFNs' ``AUX_KEYS`` summed over the layers, f32 (zeros without MoE);
     each group's cache is {"p{i}": entry}, each tensor of the layer's entry
-    ({"k", "v"}, {"S", "ts1", "ts2"} or {"h", "conv"}) stacked over the
-    group's layers. A recurrent layer's state is written straight into its
-    slice of the stack."""
+    ({"k", "v"} and {"xk", "xv"}, {"S", "ts1", "ts2"} or {"h", "conv"})
+    stacked over the group's layers. A recurrent layer's state is written
+    straight into its slice of the stack."""
     caches = []
     aux = torch.zeros((len(AUX_KEYS),), dtype=torch.float32, device=h.device)
     remat = not collect_cache and _remat(cfg)
@@ -212,7 +229,7 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
         for r in range(repeats):
             for i, kind in enumerate(pattern):
                 apply = functools.partial(apply_layer, cfg, kind, causal=causal,
-                                          positions=positions)
+                                          positions=positions, enc_out=enc_out)
                 if not collect_cache:
                     h, a, _ = (checkpoint(apply, layers[i][r], h, use_reentrant=False) if remat
                                else apply(layers[i][r], h))
@@ -240,13 +257,33 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
     return h, aux, (caches if collect_cache else None)
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *, dtype: torch.dtype,
+def run_encoder(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The bidirectional encoder over stubbed frame embeddings (B, Se, d):
+    ``n_enc_layers`` global layers without a mask, remat as the decoder's,
+    then the encoder's final norm.  An MoE FFN's aux is discarded, as the
+    reference discards it."""
+    h = frames.to(dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    apply = functools.partial(apply_layer, cfg, "global", causal=False, positions=positions)
+    remat = _remat(cfg)
+    for p in _layers(params, "encoder/blocks/", cfg.n_enc_layers):
+        h, _, _ = checkpoint(apply, p, h, use_reentrant=False) if remat else apply(p, h)
+    return rms_norm(h, params["encoder/ln_f"], cfg.norm_eps)
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, dtype: torch.dtype,
             collect_cache: bool = False):
-    """tokens (B, S) -> (final-normed h in ``dtype``, aux, caches|None)."""
-    h = embed_tokens(params, tokens, dtype)
+    """batch: tokens (B, S) [+ frames (B, Se, d) for an encoder-decoder |
+    patches (B, P, d), put in front of the tokens].  Returns (final-normed
+    h in ``dtype`` over the joined length, aux, caches|None)."""
+    h = embed_tokens(params, batch["tokens"], dtype)
+    enc_out = run_encoder(params, cfg, batch["frames"], dtype=dtype) if cfg.enc_dec else None
+    if cfg.n_patches and "patches" in batch:
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux, caches = run_groups(params, cfg, h, causal=True, positions=positions,
-                                collect_cache=collect_cache)
+                                collect_cache=collect_cache, enc_out=enc_out)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux, caches
 
 
@@ -298,9 +335,11 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
             dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
     """Scalar training loss and metrics; batch["tokens"] is (B, S + 1),
-    shifted into inputs and labels; batch["mask"] (B, S) is optional.  With
-    an MoE FFN the loss adds (load balance + router z) / the attention
-    layers' count, and the metrics carry the three aux means over them."""
+    shifted into inputs and labels; batch["mask"] (B, S) is optional, and
+    the frontend stubs ("frames", "patches") go to ``forward`` as they are.
+    Patch positions predict no token.  With an MoE FFN the loss adds (load
+    balance + router z) / the attention layers' count, and the metrics
+    carry the three aux means over them."""
     check_supported(cfg)
     params = cast_params(params, dtype)
     tokens = batch["tokens"]
@@ -308,7 +347,9 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    h, aux, _ = forward(params, cfg, tokens[:, :-1], dtype=dtype)
+    h, aux, _ = forward(params, cfg, dict(batch, tokens=tokens[:, :-1]), dtype=dtype)
+    if cfg.n_patches and "patches" in batch:
+        h = h[:, cfg.n_patches:]  # only text positions predict tokens
     loss, metrics = lm_loss(params, cfg, h, labels, mask)
     if cfg.moe is not None:
         n = float(max(cfg.count_kind(*ATTN_KINDS), 1))
@@ -320,9 +361,9 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
 
 
 class Transformer(nn.Module):
-    """Decoder-only model (global, local or chunked attention with a dense
-    or MoE FFN, RWKV-6 and RG-LRU layers) with stacked per-group weights,
-    for serving.
+    """The model (global, local or chunked attention with a dense or MoE
+    FFN, RWKV-6 and RG-LRU layers; an encoder and cross-attention for an
+    encoder-decoder config) with stacked per-group weights, for serving.
 
     ``dtype`` is the compute dtype and the dtype of the weights and caches;
     the weights are frozen.  Weights are random from ``seed``;
@@ -360,10 +401,10 @@ class Transformer(nn.Module):
                     h, _ = decode_apply_layer(self.cfg, kind, layers[i][r], h, layer_cache, pos)
         return h, cache_groups
 
-    def forward(self, tokens: torch.Tensor, *, collect_cache: bool = False):
-        """tokens (B, S) -> (final-normed h, caches|None); serving drops the
-        MoE aux."""
-        h, _, caches = forward(self.flat, self.cfg, tokens, dtype=self.dtype,
+    def forward(self, batch: dict, *, collect_cache: bool = False):
+        """batch as :func:`forward` takes it -> (final-normed h, caches|None);
+        serving drops the MoE aux."""
+        h, _, caches = forward(self.flat, self.cfg, batch, dtype=self.dtype,
                                collect_cache=collect_cache)
         return h, caches
 

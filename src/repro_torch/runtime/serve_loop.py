@@ -70,6 +70,17 @@ class Server:
                             (self.scfg.batch, self.scfg.prompt_len),
                             dtype=np.int32)
 
+    def _batch(self, prompts: np.ndarray) -> dict:
+        """The prefill's batch: the prompts, and for an encoder-decoder
+        config the reference Server's stub frames, zeros (B, prompt_len,
+        d_model) in bf16."""
+        batch = {"tokens": torch.from_numpy(prompts).long().to(self.device)}
+        if self.cfg.enc_dec:
+            batch["frames"] = torch.zeros((self.scfg.batch, self.scfg.prompt_len,
+                                           self.cfg.d_model), dtype=torch.bfloat16,
+                                          device=self.device)
+        return batch
+
     def _now(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -84,8 +95,7 @@ class Server:
         while True:
             try:
                 t_start = self._now()
-                batch = {"tokens": torch.from_numpy(prompts).long().to(self.device)}
-                logits, cache = self.prefill(batch)
+                logits, cache = self.prefill(self._batch(prompts))
                 out = np.zeros((sc.batch, sc.max_new_tokens), np.int32)
                 tok = logits[:, -1].argmax(-1)
                 t_prefill = self._now()

@@ -964,7 +964,8 @@ def test_server_on_card_launches_flash_per_attention_layer(cuda, arch):
     same tokens."""
     cfg = smoke_config(get_arch(arch))
     scfg = ServeConfig(batch=2, prompt_len=64, max_new_tokens=6)
-    mask = {"global": (0, 0), "local": (cfg.window, 0), "chunked": (0, cfg.window)}
+    mask = {"global": (True, 0, 0), "local": (True, cfg.window, 0),
+            "chunked": (True, 0, cfg.window)}
     want = {m: sum(mask[k] == m for k in cfg.layer_kinds()) for m in set(mask.values())}
     want = {m: n for m, n in want.items() if n}
     fa.launches = 0
@@ -977,3 +978,138 @@ def test_server_on_card_launches_flash_per_attention_layer(cuda, arch):
     assert fa.launches == 2 * cfg.n_layers and faulted.retries == 1
     assert fa.mask_launches == {m: 2 * n for m, n in want.items()}
     np.testing.assert_array_equal(clean.outputs, faulted.outputs)
+
+
+# -- cross-attention: no mask at Sq != Sk; the encoder-decoder and VLM paths ---
+# (B, Sq, H, KV, D, causal, window, chunk, softcap, Sk)
+CROSS_CASES = [
+    (2, 300, 4, 2, 64, False, 0, 0, 0.0, 700),
+    (1, 2048, 16, 16, 64, False, 0, 0, 0.0, 1024),  # seamless-m4t-large-v2, half the frames
+]
+
+
+def _qkv_cross(case, dtype, device):
+    B, Sq, H, KV, D = case[:5]
+    Sk = case[9]
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.standard_normal(s, np.float32)).to(device, dtype)
+                 for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_kernels_without_a_mask_at_sq_ne_sk_match_plain(cuda, case, dtype):
+    """ops.flash_attention(causal=False) at Sq != Sk reaches the kernels:
+    the forward (serving), the LSE forward and the backward (under grad),
+    each against its plain version; the backward twice, bit-identical."""
+    from repro_torch.kernels import ops
+
+    q, k, v = _qkv_cross(case, dtype, cuda)
+    before = (fa.launches, fa.cross_launches, fa.lse_launches, fa.bwd_launches)
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    o, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    o_r, lse_r = ref.attention_lse_ref(q, k, v, causal=False)
+    _assert_bwd_close(o, o_r, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_r.cpu().numpy(), atol=1e-5)
+    do = torch.randn_like(q)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want_g = ref.flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                               causal=False)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want_g):
+        _assert_bwd_close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=False)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    torch.autograd.grad(out, leaves, do)
+    assert (fa.launches, fa.cross_launches, fa.lse_launches, fa.bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 3)
+
+
+def test_a_mask_at_sq_ne_sk_raises_on_card(cuda):
+    """A causal mask, a window, a chunk or q_offset at Sq != Sk is not
+    ported to the card: it raises, and nothing falls back."""
+    from repro_torch.kernels import ops
+
+    q, k, v = _qkv_cross(CROSS_CASES[0], torch.float32, cuda)
+    for kw in (dict(), dict(causal=False, window=64), dict(causal=False, chunk=64),
+               dict(causal=False, q_offset=8)):
+        with pytest.raises(NotImplementedError):
+            ops.flash_attention(q, k, v, **kw)
+
+
+def test_seamless_prefill_on_card_launches_flash_by_mask(cuda):
+    """A smoke seamless-m4t-large-v2 prefill: flash once per encoder layer
+    and per decoder layer's cross-attention at (False, 0, 0), once per
+    decoder layer at (True, 0, 0); the cross launches are at Sq != Sk when
+    the frames are fewer than the tokens."""
+    cfg = smoke_config(get_arch("seamless-m4t-large-v2"))
+    L = cfg.n_layers
+    model = Transformer(cfg, device=cuda)
+    prefill = make_prefill_step(model)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 64))).to(cuda)
+    for n_frames in (64, 32):
+        frames = torch.from_numpy(rng.standard_normal((2, n_frames, cfg.d_model))).to(cuda)
+        fa.launches = fa.cross_launches = 0
+        fa.mask_launches.clear()
+        logits, cache = prefill({"tokens": tokens, "frames": 0.1 * frames})
+        assert fa.mask_launches == {(False, 0, 0): cfg.n_enc_layers + L, (True, 0, 0): L}
+        assert fa.cross_launches == (L if n_frames != 64 else 0)
+        assert cache["pos"] == 64 and cache["groups"][0]["p0"]["xk"].shape[2] == n_frames
+        assert torch.isfinite(logits.float()).all()
+
+
+# (arch, overrides, frames): seamless over as many and half as many frames as
+# tokens, llava with its patches, rsc-llm with a softcap of 30 and of 1
+FEATURE_CASES = [("seamless-m4t-large-v2", {}, 70), ("seamless-m4t-large-v2", {}, 35),
+                 ("llava-next-34b", {}, 0), ("rsc-llm", {"attn_logit_softcap": 30.0}, 0),
+                 ("rsc-llm", {"attn_logit_softcap": 1.0}, 0)]
+
+
+@pytest.mark.parametrize("arch,over,n_frames", FEATURE_CASES)
+def test_new_features_on_card_match_cpu(cuda, arch, over, n_frames):
+    """The smoke model with frames, patches or a softcap on the card
+    (kernels) against the CPU (plain versions), f32: prefill and 3 decode
+    steps to 1e-4; the training loss to 1e-5 and its gradients to 1e-4."""
+    cfg = smoke_config(get_arch(arch)).replace(**over)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 71)))}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(0.1 * rng.standard_normal((2, n_frames, cfg.d_model)))
+    if cfg.n_patches:
+        batch["patches"] = torch.from_numpy(
+            0.1 * rng.standard_normal((2, cfg.n_patches, cfg.d_model)))
+    batch = {k: (t.float() if t.is_floating_point() else t) for k, t in batch.items()}
+    cpu = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2)
+    gpu = Transformer(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        logits, cache = prefill(dict({k: t.to(dev) for k, t in batch.items()},
+                                     tokens=batch["tokens"][:, :70].to(dev)))
+        seq = [logits.cpu()]
+        for _ in range(3):
+            logits, cache = decode(cache, logits[:, -1].argmax(-1)[:, None])
+            seq.append(logits.cpu())
+        outs.append(torch.stack(seq))
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), atol=1e-4)
+    params = pmod.materialize(transformer.model_defs(cfg), seed=1)
+    res = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        loss, _ = transformer.loss_fn(leaves, cfg, {k: t.to(dev) for k, t in batch.items()},
+                                      dtype=torch.float32)
+        res.append([loss.detach().cpu()] + [g.cpu() for g in
+                                             torch.autograd.grad(loss, list(leaves.values()))])
+    np.testing.assert_allclose(res[1][0].numpy(), res[0][0].numpy(), atol=1e-5)
+    for a, b in zip(res[1][1:], res[0][1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)

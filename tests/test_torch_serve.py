@@ -32,11 +32,11 @@ from repro.checkpoint.manager import _flatten
 from repro.configs.base import get_arch as jget_arch
 from repro.configs.base import smoke_config as jsmoke
 from repro.models import transformer as jtransformer
-from repro_torch.configs.base import MoESpec, get_arch, smoke_config
+from repro_torch.configs.base import MoESpec, get_arch, list_archs, smoke_config
 from repro_torch.models import convert
 from repro_torch.models import params as pmod
 from repro_torch.models.steps import make_decode_step, make_prefill_step
-from repro_torch.models.transformer import Transformer, model_defs
+from repro_torch.models.transformer import Transformer, loss_fn, model_defs
 from repro_torch.runtime.fault_injection import FaultInjector, InjectedFault
 from repro_torch.runtime.serve_loop import ServeConfig, Server
 from tests.conftest import run_subprocess_py
@@ -194,7 +194,7 @@ def test_port_reproduces_ring_overwrite_at_pos_S(jax_run):
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     logits, cache = prefill({"tokens": tokens})
     nxt = logits[:, -1].argmax(-1)[:, None]
-    full_h, _ = model(torch.cat([tokens, nxt], 1))
+    full_h, _ = model({"tokens": torch.cat([tokens, nxt], 1)})
     full = model.unembed(full_h[:, -1:])
 
     ring, _ = decode({"pos": S, "groups": _clone(cache["groups"])}, nxt)
@@ -247,16 +247,46 @@ def test_server_output_deterministic(cfg):
 MOE = MoESpec(n_experts=4, top_k=2, capacity_factor=1.25, group_size=64)
 
 
-@pytest.mark.parametrize("feature", [
-    dict(attn_logit_softcap=30.0), dict(enc_dec=True), dict(n_patches=4),
-    # chunked layers and the MoE FFN are ported; beside an unported
-    # feature the model still raises
-    dict(block_groups=((("chunked",), 2),), window=8, attn_logit_softcap=30.0),
-    dict(moe=MOE, n_patches=4),
-])
+@pytest.mark.parametrize("feature", ["unknown layer kind", "dots", "save_attn"])
 def test_unported_features_raise(cfg, feature):
-    with pytest.raises(NotImplementedError):
-        Transformer(cfg.replace(**feature), device="cpu")
+    """What the port still refuses: a layer kind it does not know (a config
+    that skipped ArchConfig's own check), when the model is built; the
+    remat policies "dots" and "save_attn", under grad (the model builds and
+    serves)."""
+    if feature == "unknown layer kind":
+        bad = cfg.replace()
+        object.__setattr__(bad, "block_groups", ((("mamba",), 2),))
+        with pytest.raises(NotImplementedError, match="mamba"):
+            Transformer(bad, device="cpu")
+        return
+    bad = cfg.replace(remat_policy=feature)
+    Transformer(bad, device="cpu")
+    leaves = {k: v.requires_grad_() for k, v in pmod.materialize(model_defs(bad)).items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(3, bad.vocab_size, (1, 9)))
+    with pytest.raises(NotImplementedError, match=feature):
+        loss_fn(leaves, bad, {"tokens": tokens}, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_registered_architecture_builds(arch):
+    """Each of the reference's architectures builds at smoke size with the
+    reference's flatten paths and shapes, and prefills with its frontend
+    stubs (frames for an encoder-decoder, patches for a VLM)."""
+    cfg = smoke_config(get_arch(arch))
+    model = Transformer(cfg, device="cpu", dtype=torch.float32)
+    jflat = _flatten(jtransformer.model_defs(jsmoke(jget_arch(arch))))
+    assert list(model.flat) == list(jflat)
+    assert all(tuple(t.shape) == jflat[k].shape for k, t in model.flat.items())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 8)))}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal((2, 6, cfg.d_model))).float()
+    if cfg.n_patches:
+        batch["patches"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_patches, cfg.d_model))).float()
+    logits, cache = make_prefill_step(model)(batch)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert cache["pos"] == 8 + cfg.n_patches
 
 
 @pytest.mark.parametrize("feature", [
@@ -356,7 +386,7 @@ def test_port_reproduces_local_ring_fault(jax_run, S):
     _, cache = prefill({"tokens": toks[:, :S]})
     got, _ = decode(cache, toks[:, S:])
     np.testing.assert_allclose(got.numpy(), jax_run[f"ring/{S}/decode"], atol=ATOL)
-    full_h, _ = model(toks)
+    full_h, _ = model({"tokens": toks})
     full = model.unembed(full_h[:, -1:])
     if S == 64:
         np.testing.assert_allclose(got.numpy(), full.numpy(), atol=ATOL)
