@@ -121,6 +121,10 @@ def load() -> ctypes.CDLL:
     lib.rglru_bwd.restype = i32
     lib.rglru_bwd_tiled.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.rglru_bwd_tiled.restype = i32
+    lib.stat_grid.argtypes = [ptr] * 9 + [i32] * 2 + [ctypes.c_float] + [i32] * 3 + [ptr] * 10
+    lib.stat_grid.restype = i32
+    lib.stat_philox.argtypes = [ptr] * 3 + [i32, ptr]
+    lib.stat_philox.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -15,7 +15,9 @@ result; the WKV-6 backward (both designs) f32
 5e-5 times the output's largest magnitude, bf16 one bf16 ulp more; the
 RG-LRU backward 1e-5 max(1, |want|) (dlog_a: max(1, |want|, |x ds/dlog_a|),
 as tests/test_torch_rglru_bwd.py says why), plus one bf16 ulp of a bf16
-output.  The training tests run
+output; the statistical grid kernel the plain version's bits per run
+(its cell statistics, double sums in another order, 1e-6).  The training
+tests run
 the trainer in a subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA
 initialises."""
 import os
@@ -1113,3 +1115,101 @@ def test_new_features_on_card_match_cpu(cuda, arch, over, n_frames):
     np.testing.assert_allclose(res[1][0].numpy(), res[0][0].numpy(), atol=1e-5)
     for a, b in zip(res[1][1:], res[0][1:]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+
+
+# -- the statistical layer's grid kernel (csrc/stat_grid.cu) --------------------
+STAT_POLICIES = {
+    "queue": (("hourly", {}), ("daly", dict(dt_cp_s=0.0)), ("queued", dict(q_s=1800.0))),
+    "no queue": (("hourly", {}), ("daly", dict(dt_cp_s=0.0)),
+                 ("fast-cp", dict(dt_cp_s=0.0, w_cp_s=30.0))),
+    "free checkpoints": (("free", dict(dt_cp_s=0.0, w_cp_s=0.0)),
+                         ("free queued", dict(dt_cp_s=0.0, w_cp_s=0.0, q_s=900.0))),
+    "r_f zero": (("hourly", {}), ("daly", dict(dt_cp_s=0.0)), ("queued", dict(q_s=1800.0))),
+}
+
+
+def _stat_grid(case, n_runs=300):
+    from repro_torch.core import backend as sb
+
+    r_f = 0.0 if case == "r_f zero" else np.linspace(4e-3, 9e-3, 3)
+    return sb.BandGrid(gpus=(1024, 16384, 131072), seeds=(0, 1, 2), r_f=r_f, n_runs=n_runs,
+                       policies=tuple(sb.PolicyCell(n, **kw) for n, kw in STAT_POLICIES[case]))
+
+
+@pytest.mark.parametrize("case", list(STAT_POLICIES))
+def test_stat_grid_matches_plain_to_the_bit(cuda, case):
+    """The kernel against its plain version on CUDA tensors and on the CPU:
+    the closed form and every run's ETTR and failure count torch.equal, the
+    cell statistics (double sums in other orders) to 1e-6 relative; two
+    launches bit-identical; one launch a call."""
+    from repro_torch.core import backend as sb
+    from repro_torch.kernels import stat_grid as sg
+
+    grid = _stat_grid(case)
+    cols, rate, kw = sb.grid_columns(grid, cuda)
+    kw.update(include_mc=True, n_runs=grid.n_runs, runs=True)
+    assert kw["has_queue"] == (case != "no queue")
+    before = sg.launches
+    got, again = sg.stat_grid(cols, rate, **kw), sg.stat_grid(cols, rate, **kw)
+    assert sg.launches == before + 2
+    for plain in (sg.stat_grid_ref(cols, rate, **kw),
+                  sg.stat_grid({k: v.cpu() for k, v in cols.items()}, rate.cpu(), **kw)):
+        for k in sg.OUTPUTS + ("run_ettr", "run_fails"):
+            assert torch.equal(got[k].cpu(), plain[k].cpu()), k
+        for k in sg.MC_OUTPUTS:
+            torch.testing.assert_close(got[k].cpu(), plain[k].cpu(), rtol=1e-6, atol=1e-12)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    if case == "r_f zero":
+        assert int(got["run_fails"].abs().sum()) == 0
+    else:
+        assert int(got["run_fails"].sum()) > 0
+
+
+def test_stat_grid_closed_form_alone_matches_plain(cuda):
+    """include_mc=False takes the thread-a-cell kernel: the same bits."""
+    from repro_torch.core import backend as sb
+    from repro_torch.kernels import stat_grid as sg
+
+    grid = _stat_grid("queue")
+    cols, rate, kw = sb.grid_columns(grid, cuda)
+    got, plain = sg.stat_grid(cols, rate, **kw), sg.stat_grid_ref(cols, rate, **kw)
+    assert set(got) == set(sg.OUTPUTS)
+    for k in sg.OUTPUTS:
+        assert torch.equal(got[k], plain[k]), k
+
+
+def test_stat_philox_known_answers_on_card(cuda):
+    from repro_torch.kernels import stat_grid as sg
+
+    ctr = torch.tensor([[0] * 4, [0xFFFFFFFF] * 4,
+                        [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344]], device=cuda)
+    key = torch.tensor([[0, 0], [0xFFFFFFFF] * 2, [0xA4093822, 0x299F31D0]], device=cuda)
+    assert sg.philox(ctr, key).cpu().tolist() == [
+        [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+        [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD],
+        [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]]
+
+
+def test_stat_exponential_draws_agree_between_cpu_and_card(cuda):
+    """Every one of the 2^24 uniforms gives the same f32 exponential on the
+    CPU and on the card, so the plain version's runs agree across them."""
+    u = torch.arange(1, 2 ** 24 + 1, dtype=torch.float64) * 2.0 ** -24
+    assert torch.equal((-torch.log(u)).float(), (-torch.log(u.to(cuda))).float().cpu())
+
+
+def test_batch_bands_on_card_is_one_launch(cuda):
+    """batch_bands(backend="torch") on the card: one launch a grid, and the
+    numbers of the plain version run with device="cpu"."""
+    from repro_torch.core import backend as sb
+    from repro_torch.kernels import stat_grid as sg
+
+    grid = _stat_grid("queue", n_runs=200)
+    before = sg.launches
+    res = sb.batch_bands(grid, backend="torch", include_mc=True)
+    assert sg.launches == before + 1 and res.n_compiled_calls == 1
+    cpu = sb.batch_bands(grid, backend="torch", include_mc=True, device="cpu")
+    for k in ("ettr", "n_failures", "dt_s", "mttf_hours", "mc_n_failures"):
+        np.testing.assert_array_equal(getattr(res, k), getattr(cpu, k))
+    for k in ("mc_ettr_mean", "mc_ettr_std"):
+        np.testing.assert_allclose(getattr(res, k), getattr(cpu, k), rtol=1e-6, atol=1e-12)
