@@ -102,11 +102,11 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     lib.flash_attention_fwd.argtypes = (
-        [ptr] * 5 + [i32] * 7 + [i64] * 12 + [i32] * 3
+        [ptr] * 5 + [i32] * 7 + [i64] * 12 + [i32] * 4
         + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_bwd.argtypes = (
-        [ptr] * 11 + [i32] * 8 + [i32] * 3 + [ctypes.c_float, ctypes.c_float, ptr])
+        [ptr] * 11 + [i32] * 8 + [i32] * 4 + [ctypes.c_float, ctypes.c_float, ptr])
     lib.flash_attention_bwd.restype = i32
     for fn in (lib.wkv6_fwd, lib.wkv6_chunked_fwd):
         fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ptr]

@@ -74,6 +74,7 @@ struct Params {
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
   int causal, window, chunk;
+  int q_off;  // q row i sits at position q_off + i
   float softcap, scale;
 };
 
@@ -149,7 +150,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const int n_kv = (p.Sk + BK - 1) / BK;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k_start = kt * BK;
-    if (tile_class(q_start, BQ, k_start, BK, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
+    if (tile_class(q_start, BQ, k_start, BK, p.Sq, p.Sk,
+                   p.causal, p.window, p.chunk, p.q_off) == SKIP)
       continue;  // uniform over the block
 
     __syncthreads();  // the previous tile's readers of sK / sV / sP are done
@@ -305,8 +307,9 @@ __global__ void __launch_bounds__(NT, 1)
   const int n_items = n_qt * p.H * p.B;
   const int n_kv = (p.Sk + BK - 1) / BK;
   // The grid is persistent: items are (q tile, head, batch); under a causal
-  // mask the last q tiles do the most work, so they come first, and heads
-  // that share a kv head are neighbours. Round r hands items r * gridDim.x
+  // mask the last q tiles do the most work (at any q_off: a row's keys,
+  // min(Sk, q_off + row + 1), grow with its row), so they come first, and
+  // heads that share a kv head are neighbours. Round r hands items r * gridDim.x
   // onwards to the blocks, in reverse order on odd rounds, so a block that
   // took a heavy item in one round takes a light one in the next.
   auto round_item = [&](int r) {
@@ -322,7 +325,8 @@ __global__ void __launch_bounds__(NT, 1)
   // producer and consumers walk the same sequence
   auto next_tile = [&](int q_start, int kt) {
     for (++kt; kt < n_kv; ++kt)
-      if (tile_class(q_start, BQ, kt * BK, BK, p.Sq, p.Sk, p.causal, p.window, p.chunk) != SKIP)
+      if (tile_class(q_start, BQ, kt * BK, BK, p.Sq, p.Sk,
+                     p.causal, p.window, p.chunk, p.q_off) != SKIP)
         break;
     return kt;
   };
@@ -424,12 +428,13 @@ __global__ void __launch_bounds__(NT, 1)
       wgmma_commit();
     };
     auto key_range = [&](int qi, int& lo, int& hi) {
+      const int qp = qi + p.q_off;  // the row's position
       lo = 0;
       hi = p.Sk - 1;
-      if (p.causal) hi = min(hi, qi);
-      if (p.window > 0) lo = max(lo, qi - p.window + 1);
+      if (p.causal) hi = min(hi, qp);
+      if (p.window > 0) lo = max(lo, qp - p.window + 1);
       if (p.chunk > 0) {
-        const int first = qi / p.chunk * p.chunk;
+        const int first = qp / p.chunk * p.chunk;
         lo = max(lo, first);
         hi = min(hi, first + p.chunk - 1);
       }
@@ -442,7 +447,8 @@ __global__ void __launch_bounds__(NT, 1)
         for (int i = 0; i < BK / 2; ++i)
           s[i] = tanhf(s[i] * p.scale / p.softcap) * p.softcap * LOG2E;
       }
-      if (tile_class(row0, 64, k_start, BK, p.Sq, p.Sk, p.causal, p.window, p.chunk) != FULL) {
+      if (tile_class(row0, 64, k_start, BK, p.Sq, p.Sk,
+                     p.causal, p.window, p.chunk, p.q_off) != FULL) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int kj = k_start + (i >> 2) * 8 + 2 * t + (i & 1);
@@ -615,18 +621,20 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
 // lse: (B, H, Sq) f32, written when not null (the backward's input).
+// q_offset: query row i sits at position q_offset + i (>= 0).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
                                    int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                    int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                                   int causal, int window, int chunk, float softcap, float scale,
-                                   void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                                   int causal, int window, int chunk, int q_offset,
+                                   float softcap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, lse, B, Sq, Sk, H, KV,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 causal, window, chunk, softcap, scale};
+                 causal, window, chunk, q_offset, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The design follows the dtype. bf16 runs on the tensor cores. f32 keeps
   // the CUDA-core kernel: tensor cores take f32 only as TF32 (about three

@@ -114,6 +114,7 @@ struct BwdParams {
   int B, Sq, Sk, H, KV;
   int Sp;  // the row pitch of delta and lse2: Sq (f32), Sq rounded up to 4 (bf16, for TMA)
   int causal, window, chunk;
+  int q_off;  // q row i sits at position q_off + i
   float softcap, scale;
 };
 
@@ -300,7 +301,8 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(const BwdParams p) {
     const float* delta = p.delta + ((int64_t)b * p.H + h) * p.Sq;
     for (int qt = 0; qt < n_qt; ++qt) {
       const int q_start = qt * T;
-      if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
+      if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk,
+                     p.causal, p.window, p.chunk, p.q_off) == SKIP)
         continue;  // uniform over the block
       __syncthreads();  // the last tile's readers of sQ / sdO / sP are done
       load_tile<D>(sQ, static_cast<const float*>(p.q) + head, q_rs, q_start, p.Sq);
@@ -429,7 +431,8 @@ __global__ void __launch_bounds__(NT) dq_kernel(const BwdParams p) {
   const int n_kt = (p.Sk + T - 1) / T;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k_start = kt * T;
-    if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk, p.causal, p.window, p.chunk) == SKIP)
+    if (tile_class(q_start, T, k_start, T, p.Sq, p.Sk,
+                   p.causal, p.window, p.chunk, p.q_off) == SKIP)
       continue;  // uniform over the block
     __syncthreads();  // the last tile's readers of sK / sV / sS are done
     load_tile<D>(sK, static_cast<const float*>(p.k) + kv_head, kv_rs, k_start, p.Sk);
@@ -553,26 +556,28 @@ __device__ __forceinline__ void probs_grads(float (&s)[R / 2], float (&dp)[R / 2
   }
 }
 
-// the keys lo .. hi that q row qi attends (lo > hi: none)
+// the keys lo .. hi that q row qi (at position q_off + qi) attends (lo > hi: none)
 __device__ __forceinline__ void key_range(int qi, const BwdParams& p, int& lo, int& hi) {
+  const int qp = qi + p.q_off;
   lo = 0;
   hi = p.Sk - 1;
-  if (p.causal) hi = min(hi, qi);
-  if (p.window > 0) lo = max(lo, qi - p.window + 1);
+  if (p.causal) hi = min(hi, qp);
+  if (p.window > 0) lo = max(lo, qp - p.window + 1);
   if (p.chunk > 0) {
-    const int first = qi / p.chunk * p.chunk;
+    const int first = qp / p.chunk * p.chunk;
     lo = max(lo, first);
     hi = min(hi, first + p.chunk - 1);
   }
 }
 
-// the q rows lo .. hi that attend key kj (lo > hi: none)
+// the q rows lo .. hi that attend key kj (lo > hi: none), as row indices:
+// row i sits at position q_off + i
 __device__ __forceinline__ void q_range(int kj, const BwdParams& p, int& lo, int& hi) {
-  lo = p.causal ? kj : 0;
+  lo = p.causal ? kj - p.q_off : 0;
   hi = kj < p.Sk ? p.Sq - 1 : -1;
-  if (p.window > 0) hi = min(hi, kj + p.window - 1);
+  if (p.window > 0) hi = min(hi, kj + p.window - 1 - p.q_off);
   if (p.chunk > 0) {
-    const int first = kj / p.chunk * p.chunk;
+    const int first = kj / p.chunk * p.chunk - p.q_off;
     lo = max(lo, first);
     hi = min(hi, first + p.chunk - 1);
   }
@@ -646,7 +651,7 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1)
   auto next_step = [&](int k_start, int j) {
     for (++j; j < n_steps; ++j)
       if (tile_class(j % n_qt * R, R, k_start, NC * R, p.Sq, p.Sk, p.causal, p.window,
-                     p.chunk) != SKIP)
+                     p.chunk, p.q_off) != SKIP)
         break;
     return j;
   };
@@ -731,7 +736,8 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1)
       kv_phase ^= 1;
       for (int j = next_step(k_start, -1); j < n_steps; j = next_step(k_start, j)) {
         const int q_start = j % n_qt * R;
-        const int cls = tile_class(q_start, R, key0, R, p.Sq, p.Sk, p.causal, p.window, p.chunk);
+        const int cls = tile_class(q_start, R, key0, R, p.Sq, p.Sk,
+                                   p.causal, p.window, p.chunk, p.q_off);
         mbar_wait(full(stage), phase);
         if (cls != SKIP) {  // uniform over the warpgroup; a skipped stage is still released
           const uint32_t q_tile = sQ + stage * TILE, do_tile = sdO + stage * TILE;
@@ -848,7 +854,8 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1)
   };
   auto next_tile = [&](int q_start, int kt) {
     for (++kt; kt < n_kt; ++kt)
-      if (tile_class(q_start, NC * R, kt * R, R, p.Sq, p.Sk, p.causal, p.window, p.chunk) != SKIP)
+      if (tile_class(q_start, NC * R, kt * R, R, p.Sq, p.Sk,
+                     p.causal, p.window, p.chunk, p.q_off) != SKIP)
         break;
     return kt;
   };
@@ -930,7 +937,8 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1)
       q_phase ^= 1;
       for (int kt = next_tile(q_start, -1); kt < n_kt; kt = next_tile(q_start, kt)) {
         const int k_start = kt * R;
-        const int cls = tile_class(row0, R, k_start, R, p.Sq, p.Sk, p.causal, p.window, p.chunk);
+        const int cls = tile_class(row0, R, k_start, R, p.Sq, p.Sk,
+                                   p.causal, p.window, p.chunk, p.q_off);
         mbar_wait(full(stage), phase);
         if (cls != SKIP) {  // uniform over the warpgroup; a skipped stage is still released
           const uint32_t k_tile = sK + stage * TILE, v_tile = sV + stage * TILE;
@@ -1079,20 +1087,21 @@ cudaError_t launch_d(const BwdParams& p, int dtype, int D, cudaStream_t s) {
 // tensor contiguous; delta is f32 scratch of 2 B H Sp floats, Sp = Sq
 // rounded up to a multiple of 4; n_split (bf16 only, else 1) the head
 // groups of a dK / dV item, part f32 scratch of 2 n_split B Sk KV D floats
-// when n_split > 1 (else null). Returns a cudaError_t (0 = success).
+// when n_split > 1 (else null); q_offset: query row i sits at position
+// q_offset + i (>= 0). Returns a cudaError_t (0 = success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, float* part, int n_split, int dtype,
                                    int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                                   int window, int chunk, float softcap, float scale,
-                                   void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || n_split < 1 ||
+                                   int window, int chunk, int q_offset, float softcap,
+                                   float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || n_split < 1 || q_offset < 0 ||
       (H / KV) % n_split != 0 || (n_split > 1 && (part == nullptr || dtype != 1)))
     return (int)cudaErrorInvalidValue;
   // bf16 also keeps lse log2(e) beside delta; both rows padded for TMA
   const int Sp = dtype == 1 ? (Sq + 3) / 4 * 4 : Sq;
   float* lse2 = dtype == 1 ? delta + (int64_t)B * H * Sp : nullptr;
   const BwdParams p{q, k, v, o, dout, lse, delta, lse2, dq, dk, dv, part, n_split, B, Sq, Sk,
-                    H, KV, Sp, causal, window, chunk, softcap, scale};
+                    H, KV, Sp, causal, window, chunk, q_offset, softcap, scale};
   return (int)launch_d(p, dtype, D, static_cast<cudaStream_t>(stream));
 }

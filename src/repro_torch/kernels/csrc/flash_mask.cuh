@@ -6,14 +6,17 @@ namespace {
 
 // Class of a (q tile, kv tile) pair; mirrors kernels/flash_attention.py::
 // tile_class line for line. q rows past Sq are ignored (their output is not
-// written) and keys past Sk never attend. SKIP: no pair attends; FULL: every
-// pair attends and every key is real, so no mask is needed; PARTIAL: some do.
+// written) and keys past Sk never attend; q row i sits at position
+// q_offset + i (a context-parallel rank's rows). SKIP: no pair attends;
+// FULL: every pair attends and every key is real, so no mask is needed;
+// PARTIAL: some do.
 constexpr int SKIP = 0, FULL = 1, PARTIAL = 2;
 constexpr int BIG = 1 << 30;
 
 __host__ __device__ inline int tile_class(int q_start, int block_q, int k_start, int block_k,
-                                          int Sq, int Sk, int causal, int window, int chunk) {
-  const int qa = q_start, qb = min(q_start + block_q, Sq) - 1;
+                                          int Sq, int Sk, int causal, int window, int chunk,
+                                          int q_offset) {
+  const int qa = q_offset + q_start, qb = q_offset + min(q_start + block_q, Sq) - 1;
   const int ka = k_start, kb = min(k_start + block_k, Sk) - 1;
   if (qa > qb || ka > kb) return SKIP;
   const int d_lo = causal ? 0 : -BIG;  // q - k must lie in [d_lo, d_hi]
@@ -37,14 +40,15 @@ __host__ __device__ inline int tile_class(int q_start, int block_q, int k_start,
   return all ? FULL : PARTIAL;
 }
 
-// Does query qi attend key kj? P is any parameter block with Sk, causal,
-// window and chunk.
+// Does query row qi (at position q_off + qi) attend key kj? P is any
+// parameter block with Sk, causal, window, chunk and q_off.
 template <class P>
 __device__ __forceinline__ bool attends(int qi, int kj, const P& p) {
+  const int qp = qi + p.q_off;
   bool keep = kj < p.Sk;
-  if (p.causal) keep = keep && (qi >= kj);
-  if (p.window > 0) keep = keep && (qi - kj < p.window);
-  if (p.chunk > 0) keep = keep && (qi / p.chunk == kj / p.chunk);
+  if (p.causal) keep = keep && (qp >= kj);
+  if (p.window > 0) keep = keep && (qp - kj < p.window);
+  if (p.chunk > 0) keep = keep && (qp / p.chunk == kj / p.chunk);
   return keep;
 }
 

@@ -5,6 +5,13 @@
 VJP.  ``FlashAttention`` joins them as a ``torch.autograd.Function``: its
 forward also writes the row log-sum-exp, which its backward reads.
 
+Every wrapper takes ``q_offset``: query row i sits at position q_offset + i
+(keys at 0 .. Sk - 1), which is how a context-parallel rank runs its S / n
+query rows against all S keys (``ops._maybe_context_parallel``).  The
+persistent grids' "heaviest tiles first" order stays right at any offset:
+under a causal mask a q tile's keys, min(Sk, q_offset + row + 1), still grow
+with its rows, and a key tile's q rows still shrink with its keys.
+
 On CPU tensors each wrapper returns its plain version (``ref.attention_ref``,
 ``ref.attention_lse_ref``, ``ref.flash_bwd_ref``).  On CUDA tensors it
 launches the kernel or raises; nothing falls back.
@@ -43,6 +50,8 @@ _BIG = 1 << 30
 launches = 0      # forward without the LSE (serving)
 mask_launches: dict = {}  # those forward launches by mask, (causal, window, chunk)
 cross_launches = 0  # those forward launches at Sq != Sk (cross-attention)
+# launches at q_offset != 0 (a context-parallel rank's), by wrapper
+offset_launches = {"fwd": 0, "fwd_lse": 0, "bwd": 0}
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
 BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
@@ -78,12 +87,12 @@ def bwd_split(D: int, B: int, Sk: int, H: int, KV: int) -> int:
 
 
 def tile_class(q_start: int, block_q: int, k_start: int, block_k: int, Sq: int, Sk: int,
-               *, causal: bool, window: int, chunk: int) -> int:
+               *, causal: bool, window: int, chunk: int, q_offset: int = 0) -> int:
     """SKIP if no (q, k) pair of the tile attends, FULL if every pair does
     and every key is real (the kernel needs no mask there), else PARTIAL.
     q rows past Sq are ignored (their output is not written); keys past Sk
-    never attend."""
-    qa, qb = q_start, min(q_start + block_q, Sq) - 1
+    never attend; q row i sits at position q_offset + i."""
+    qa, qb = q_offset + q_start, q_offset + min(q_start + block_q, Sq) - 1
     ka, kb = k_start, min(k_start + block_k, Sk) - 1
     if qa > qb or ka > kb:
         return SKIP
@@ -166,7 +175,7 @@ def aligned_for_tma(t: torch.Tensor) -> bool:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           window: int, chunk: int, softcap: float) -> None:
+           window: int, chunk: int, softcap: float, q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
     if not (q.device == k.device == v.device):
@@ -185,8 +194,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not supported (kernel takes {HEAD_DIMS})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous in the head dim")
-    if window < 0 or chunk < 0 or softcap < 0:
-        raise ValueError("window, chunk and softcap must be >= 0")
+    if window < 0 or chunk < 0 or softcap < 0 or q_offset < 0:
+        raise ValueError("window, chunk, softcap and q_offset must be >= 0")
     if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not aligned_for_tma(t):
@@ -198,7 +207,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-             window: int, chunk: int, softcap: float, with_lse: bool):
+             window: int, chunk: int, softcap: float, q_offset: int, with_lse: bool):
     """Launch the forward kernel on CUDA tensors: (o, lse (B, H, Sq) f32 or
     None)."""
     if q.device.type != "cuda":
@@ -223,7 +232,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
-            int(causal), int(window), int(chunk), float(softcap),
+            int(causal), int(window), int(chunk), int(q_offset), float(softcap),
             1.0 / math.sqrt(D), stream)
     _build.check(lib, err, "flash_attention_fwd launch")
     return o, lse
@@ -231,17 +240,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D), k / v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
-    Query and key positions both start at 0."""
+    Query positions start at q_offset, key positions at 0."""
     global launches, cross_launches
-    _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
+    _check(q, k, v, window=window, chunk=chunk, softcap=softcap, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 chunk=chunk, softcap=softcap)
+                                 chunk=chunk, softcap=softcap, q_offset=q_offset)
     o, _ = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
-                    softcap=softcap, with_lse=False)
+                    softcap=softcap, q_offset=q_offset, with_lse=False)
     launches += 1
+    offset_launches["fwd"] += q_offset != 0
     mask = (bool(causal), window, chunk)
     mask_launches[mask] = mask_launches.get(mask, 0) + 1
     cross_launches += q.shape[1] != k.shape[1]
@@ -250,29 +260,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0, chunk: int = 0,
-                        softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                        softcap: float = 0.0, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention``'s output and the row log-sum-exp (B, H, Sq) f32,
     head h = kv * G + g, that ``flash_attention_bwd`` reads."""
     global lse_launches
-    _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
+    _check(q, k, v, window=window, chunk=chunk, softcap=softcap, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.attention_lse_ref(q, k, v, causal=causal, window=window,
-                                     chunk=chunk, softcap=softcap)
+                                     chunk=chunk, softcap=softcap, q_offset=q_offset)
     o, lse = _forward(q, k, v, causal=causal, window=window, chunk=chunk,
-                      softcap=softcap, with_lse=True)
+                      softcap=softcap, q_offset=q_offset, with_lse=True)
     lse_launches += 1
+    offset_launches["fwd_lse"] += q_offset != 0
     return o, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, chunk: int = 0, softcap: float = 0.0
+                        window: int = 0, chunk: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
     from the forward's output ``o`` and row log-sum-exp ``lse``; each in its
     input's dtype."""
     global bwd_launches
-    _check(q, k, v, window=window, chunk=chunk, softcap=softcap)
+    _check(q, k, v, window=window, chunk=chunk, softcap=softcap, q_offset=q_offset)
     B, Sq, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
@@ -283,7 +296,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError("o, lse and do must lie on q's device")
     if q.device.type == "cpu":
         return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
-                                 chunk=chunk, softcap=softcap)
+                                 chunk=chunk, softcap=softcap, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     Sk, KV = k.shape[1], k.shape[2]
@@ -310,9 +323,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), n_split,
             DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
-            int(causal), int(window), int(chunk), float(softcap), 1.0 / math.sqrt(D), stream)
+            int(causal), int(window), int(chunk), int(q_offset), float(softcap),
+            1.0 / math.sqrt(D), stream)
     _build.check(lib, err, "flash_attention_bwd launch")
     bwd_launches += 1
+    offset_launches["bwd"] += q_offset != 0
     return dq, dk, dv
 
 
@@ -321,15 +336,17 @@ class FlashAttention(torch.autograd.Function):
     the backward kernel (their plain versions on CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int, softcap: float):
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int, softcap: float,
+                q_offset: int):
         o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, chunk=chunk,
-                                     softcap=softcap)
+                                     softcap=softcap, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = dict(causal=causal, window=window, chunk=chunk, softcap=softcap)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk, softcap=softcap,
+                        q_offset=q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

@@ -78,16 +78,19 @@ def attention_lse_ref(
     window: int = 0,
     chunk: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``attention_ref``'s output and the row log-sum-exp (B, H, Sq) in f32,
     head h = kv * G + g, as ``ops._flash_fwd_impl`` forms it:
     m + log(max(l, 1e-20)), so -1e30 for a row with no valid key."""
     B, Sq, H, _ = q.shape
-    s, mask = _scores(q, k, causal=causal, window=window, chunk=chunk, softcap=softcap)
+    s, mask = _scores(q, k, causal=causal, window=window, chunk=chunk, softcap=softcap,
+                      q_offset=q_offset)
     m = s.amax(-1)
     l = torch.where(mask[None, None, None], torch.exp(s - m[..., None]), 0.0).sum(-1)
     lse = m + torch.log(torch.clamp(l, min=1e-20))
-    o = attention_ref(q, k, v, causal=causal, window=window, chunk=chunk, softcap=softcap)
+    o = attention_ref(q, k, v, causal=causal, window=window, chunk=chunk, softcap=softcap,
+                      q_offset=q_offset)
     return o, lse.reshape(B, H, Sq)
 
 
@@ -103,6 +106,7 @@ def flash_bwd_ref(
     window: int = 0,
     chunk: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The arithmetic of ``ops._flash_bwd_impl`` unblocked: P from (q, k,
     lse) under the mask, delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T
@@ -124,7 +128,7 @@ def flash_bwd_ref(
     if softcap > 0:
         sc = torch.tanh(s / softcap)
         s = sc * softcap
-    q_pos = torch.arange(Sq, device=q.device)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
     m = _mask(q_pos, torch.arange(Sk, device=q.device), causal=causal, window=window,
               chunk=chunk)[None, None, None]
     lse_b = lse.to(f64).reshape(B, KV, G, Sq)

@@ -1,8 +1,13 @@
 """Transformer building blocks: norms, RoPE, attention, FFN, MoE (after
 ``repro.models.layers``).
 
-Functions take plain tensors; parameters come in as dicts shaped as
-``attention_defs`` / ``ffn_defs`` name them.  Projections are written as
+Functions take plain tensors, or DTensors on a mesh; parameters come in as
+dicts shaped as ``attention_defs`` / ``ffn_defs`` name them.  ``constrain``
+stands where the reference constrains an activation's sharding (an
+identity outside a mesh context), and also before each projection's
+matmul, where XLA gathers the sequence-parallel residual stream by itself
+and DTensor must be told (it does not flatten a sharded sequence into the
+matmul's rows).  Projections are written as
 matmuls over flattened head dims so q / k / v come out contiguous in the
 (B, S, H, D) layout the attention kernel reads.
 """
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig, MoESpec
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.axes import constrain, constrain_view
 
 
 # ---------------------------------------------------------------------------
@@ -49,42 +55,50 @@ def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
     norm."""
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     defs = {
-        "wq": ParamDef((d, H, Dh)),
-        "wk": ParamDef((d, KV, Dh)),
-        "wv": ParamDef((d, KV, Dh)),
-        "wo": ParamDef((H, Dh, d)),
+        "wq": ParamDef((d, H, Dh), ("embed", "q_heads", "head_dim")),
+        "wk": ParamDef((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, Dh, d), ("q_heads", "head_dim", "embed")),
     }
     if cfg.qk_norm and not cross:
-        defs["q_norm"] = ParamDef((Dh,), init="ones")
-        defs["k_norm"] = ParamDef((Dh,), init="ones")
+        defs["q_norm"] = ParamDef((Dh,), ("head_dim",), init="ones")
+        defs["k_norm"] = ParamDef((Dh,), ("head_dim",), init="ones")
     return defs
 
 
-def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul; the result is contiguous."""
+def _heads_proj(x: torch.Tensor, w: torch.Tensor, heads: str) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul, the heads placed as the
+    logical axis ``heads``; the result is contiguous."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    x = constrain(x, "act_batch", "act_seq", None)
+    return constrain_view(x @ w.to(x.dtype).reshape(d, h * k), (*x.shape[:-1], h, k),
+                          "act_batch", "act_seq", heads, None)
 
 
 def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     h, k, d = w.shape
-    return o.reshape(*o.shape[:-2], h * k) @ w.to(o.dtype).reshape(h * k, d)
+    o = constrain_view(o.contiguous(), (*o.shape[:-2], h * k),
+                       "act_batch", "act_seq", "act_heads", None)
+    return o @ w.to(o.dtype).reshape(h * k, d)
 
 
 def _project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
                  positions: Optional[torch.Tensor]):
     """q from ``xq``, k and v from ``xkv``; RoPE at ``positions`` unless it
     is None (cross-attention)."""
-    q = _heads_proj(xq, p["wq"])
-    k = _heads_proj(xkv, p["wk"])
-    v = _heads_proj(xkv, p["wv"])
+    q = _heads_proj(xq, p["wq"], "act_heads")
+    k = _heads_proj(xkv, p["wk"], "act_kv_heads")
+    v = _heads_proj(xkv, p["wv"], "act_kv_heads")
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None)
+    k = constrain(k, "act_batch", "act_seq", "act_kv_heads", None)
+    v = constrain(v, "act_batch", "act_seq", "act_kv_heads", None)
     return q, k, v
 
 
@@ -111,7 +125,9 @@ def self_attention(
     q, k, v = _project_qkv(p, x, x, cfg, positions)
     o = ops.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                             softcap=cfg.attn_logit_softcap)
-    return _out_proj(o, p["wo"]), (k, v)
+    o = constrain(o, "act_batch", "act_seq", "act_heads", None)
+    out = constrain(_out_proj(o, p["wo"]), "act_batch", "act_seq", None)
+    return out, (k, v)
 
 
 def cross_attention(
@@ -125,7 +141,7 @@ def cross_attention(
     encoder's, which the prefill caches."""
     q, k, v = _project_qkv(p, x, enc_out, cfg, None)
     o = ops.flash_attention(q, k, v, causal=False)
-    return _out_proj(o, p["wo"]), (k, v)
+    return constrain(_out_proj(o, p["wo"]), "act_batch", "act_seq", None), (k, v)
 
 
 def decode_cross_attention(
@@ -139,7 +155,7 @@ def decode_cross_attention(
     the reference's jnp in plain PyTorch: scores and softmax in f32, the
     output in x's dtype."""
     B, dt = x.shape[0], x.dtype
-    q = _heads_proj(x, p["wq"])  # (B, 1, H, Dh)
+    q = _heads_proj(x, p["wq"], "act_heads")  # (B, 1, H, Dh)
     H, KV = q.shape[2], xk.shape[2]
     qf = q.float().reshape(B, KV, H // KV, cfg.d_head)
     s = torch.einsum("bkgd,blkd->bkgl", qf, xk.float()) / math.sqrt(cfg.d_head)
@@ -195,22 +211,24 @@ def decode_self_attention(
 def ffn_defs(cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     defs = {
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d)),
+        "w_up": ParamDef((d, f), ("embed", "ff")),
+        "w_down": ParamDef((f, d), ("ff", "embed")),
     }
     if cfg.ffn_gated:
-        defs["w_gate"] = ParamDef((d, f))
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"))
     return defs
 
 
 def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    x = constrain(x, "act_batch", "act_seq", None)
     u = x @ p["w_up"].to(dt)
     if "w_gate" in p:  # SwiGLU
         h = F.silu(x @ p["w_gate"].to(dt)) * u
     else:  # classic MLP; jax.nn.gelu defaults to the tanh form
         h = F.gelu(u, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    h = constrain(h, "act_batch", "act_seq", "act_ff")
+    return constrain(h @ p["w_down"].to(dt), "act_batch", "act_seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -221,10 +239,10 @@ def moe_defs(cfg: ArchConfig) -> dict:
     assert cfg.moe is not None
     d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     defs = {
-        "router": ParamDef((d, E), init_scale=0.1),
-        "w_gate": ParamDef((E, d, f)),
-        "w_up": ParamDef((E, d, f)),
-        "w_down": ParamDef((E, f, d)),
+        "router": ParamDef((d, E), ("embed", "experts"), init_scale=0.1),
+        "w_gate": ParamDef((E, d, f), ("experts", "embed", "ff")),
+        "w_up": ParamDef((E, d, f), ("experts", "embed", "ff")),
+        "w_down": ParamDef((E, f, d), ("experts", "ff", "embed")),
     }
     if cfg.moe.shared_expert:
         defs["shared"] = ffn_defs(cfg)
@@ -267,6 +285,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     ng = T // G
     C = _capacity(spec, G)
     dt, dev = x.dtype, x.device
+    # dispatch sees whole groups: the sequence unsharded (the reference's
+    # dispatch and combine constraints have no tensor here to stand on)
+    x = constrain(x, "act_batch", "act_seq", None)
     xf = x.reshape(T, d)
 
     logits = (xf.float() @ p["router"].float()).view(ng, G, E)
@@ -301,7 +322,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     out = eo.index_select(0, row[:, 0]).float() * w[:, :1]
     for k in range(1, K):
         out = out + eo.index_select(0, row[:, k]).float() * w[:, k:k + 1]
-    out = out.to(dt).view(B, S, d)
+    out = constrain(out.to(dt).view(B, S, d), "act_batch", "act_seq", None)
 
     if "shared" in p:
         out = out + ffn(p["shared"], x)

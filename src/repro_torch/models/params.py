@@ -1,9 +1,13 @@
-"""Parameter definitions: shape + dtype + initializer (after
-``repro.models.params``, without the sharding helpers).
+"""Parameter definitions: shape + logical axes + dtype + initializer (after
+``repro.models.params``).
 
 A model is described by a nested dict/list of :class:`ParamDef`; leaves are
 named by the flatten path the reference's checkpoints use
-(``groups/0/p0/attn/wq``).
+(``groups/0/p0/attn/wq``).  From it come the initialized parameters
+(``materialize``) and, through the logical-axis rules, each parameter's
+DTensor placements on a mesh (``shardings``).  Resolution is shape aware,
+as the reference's: a mesh dim that does not divide a dimension is dropped
+and recorded.
 """
 from __future__ import annotations
 
@@ -14,16 +18,23 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from repro_torch.parallel.axes import ShardingRules, placements, spec_for
+
 
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical axis names, one per dim
     dtype: torch.dtype = torch.float32
     init: str = "normal"  # normal | zeros | ones | custom
     init_scale: float = 1.0
     # used when init == "custom": init_fn(shape, dtype, generator) -> tensor
     # on generator.device
     init_fn: Optional[Callable] = None
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"logical axes {self.axes} do not match shape {self.shape}")
 
 
 def flatten(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -65,6 +76,16 @@ def materialize(defs: Any, seed: int = 0,
             out[path] = d.init_fn(d.shape, d.dtype, gen)
         else:
             out[path] = normal_init(d.shape, d.dtype, d.init_scale, gen)
+    return out
+
+
+def shardings(defs: Any, mesh: Any, rules: ShardingRules,
+              dropped: Optional[list] = None) -> dict[str, tuple]:
+    """{path: DTensor placements} of every ParamDef on ``mesh`` under
+    ``rules``; mesh dims dropped for not dividing a dim go to ``dropped``."""
+    out = {}
+    for path, d in flatten(defs):
+        out[path] = placements(spec_for(d.shape, d.axes, mesh, rules, dropped), mesh)
     return out
 
 

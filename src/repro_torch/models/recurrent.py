@@ -17,11 +17,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ffn, ffn_defs, rms_norm
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.axes import constrain, constrain_view, distribute_as
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -51,27 +53,27 @@ def rwkv_defs(cfg: ArchConfig) -> dict:
     dr = cfg.rwkv.decay_rank
     H, Dh = rwkv_heads(cfg)
     return {
-        "ln1": ParamDef((d,), init="ones"),
-        "tm_mu_x": ParamDef((d,), init="zeros"),
-        "tm_lora_A": ParamDef((d, 5 * r), init_scale=0.1),
-        "tm_lora_B": ParamDef((5, r, d), init="zeros"),
-        "tm_mu": ParamDef((5, d), init="zeros"),
-        "wr": ParamDef((d, d)),
-        "wk": ParamDef((d, d)),
-        "wv": ParamDef((d, d)),
-        "wg": ParamDef((d, d)),
-        "w0": ParamDef((d,), init="custom", init_fn=_decay_init),
-        "wd_A": ParamDef((d, dr), init_scale=0.1),
-        "wd_B": ParamDef((dr, d), init="zeros"),
-        "u": ParamDef((H, Dh), init_scale=0.5),
-        "ln_x": ParamDef((d,), init="ones"),
-        "wo": ParamDef((d, d)),
-        "ln2": ParamDef((d,), init="ones"),
-        "cm_mu_k": ParamDef((d,), init="zeros"),
-        "cm_mu_r": ParamDef((d,), init="zeros"),
-        "cm_wk": ParamDef((d, f)),
-        "cm_wv": ParamDef((f, d)),
-        "cm_wr": ParamDef((d, d)),
+        "ln1": ParamDef((d,), ("embed",), init="ones"),
+        "tm_mu_x": ParamDef((d,), ("embed",), init="zeros"),
+        "tm_lora_A": ParamDef((d, 5 * r), ("embed", "rank"), init_scale=0.1),
+        "tm_lora_B": ParamDef((5, r, d), (None, "rank", "embed"), init="zeros"),
+        "tm_mu": ParamDef((5, d), (None, "embed"), init="zeros"),
+        "wr": ParamDef((d, d), ("embed", "qkv_dim")),
+        "wk": ParamDef((d, d), ("embed", "qkv_dim")),
+        "wv": ParamDef((d, d), ("embed", "qkv_dim")),
+        "wg": ParamDef((d, d), ("embed", "qkv_dim")),
+        "w0": ParamDef((d,), ("embed",), init="custom", init_fn=_decay_init),
+        "wd_A": ParamDef((d, dr), ("embed", "rank"), init_scale=0.1),
+        "wd_B": ParamDef((dr, d), ("rank", "embed"), init="zeros"),
+        "u": ParamDef((H, Dh), ("q_heads", "head_dim"), init_scale=0.5),
+        "ln_x": ParamDef((d,), ("embed",), init="ones"),
+        "wo": ParamDef((d, d), ("qkv_dim", "embed")),
+        "ln2": ParamDef((d,), ("embed",), init="ones"),
+        "cm_mu_k": ParamDef((d,), ("embed",), init="zeros"),
+        "cm_mu_r": ParamDef((d,), ("embed",), init="zeros"),
+        "cm_wk": ParamDef((d, f), ("embed", "ff")),
+        "cm_wv": ParamDef((f, d), ("ff", "embed")),
+        "cm_wr": ParamDef((d, d), ("embed", "qkv_dim")),
     }
 
 
@@ -88,32 +90,54 @@ def rwkv_init_state(cfg: ArchConfig, batch: int, device: torch.device | str = "c
     }
 
 
+# the states' logical axes on a mesh: batch and heads (or channels) as the
+# inputs of the kernels that update them
+RWKV_STATE_AXES = {"S": ("act_batch", "act_heads", None, None), "ts1": ("act_batch", None),
+                   "ts2": ("act_batch", None)}
+RGLRU_STATE_AXES = {"h": ("act_batch", "act_lru"), "conv": ("act_batch", None, "act_lru")}
+
+
+def _zero_state(init: dict, axes: dict, x: torch.Tensor) -> dict:
+    """A block's own zero state; beside a DTensor ``x``, placed as ``axes``
+    say."""
+    if not isinstance(x, DTensor):
+        return init
+    return {name: distribute_as(t, *axes[name]) for name, t in init.items()}
+
+
 def rwkv_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
                state: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (x, state); ``state`` is updated in place."""
     B, S, d = x.shape
     H, Dh = rwkv_heads(cfg)
     dt = x.dtype
-    st = state if state is not None else rwkv_init_state(cfg, B, x.device)
+    st = (state if state is not None
+          else _zero_state(rwkv_init_state(cfg, B, x.device), RWKV_STATE_AXES, x))
 
     # ---- time mix -----------------------------------------------------
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    # the sequence gathered (a sequence-parallel stream cannot be shifted
+    # or flattened into matmul rows by DTensor)
+    xn = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "act_batch", "act_seq", None)
     dx = _shift(xn, st["ts1"]) - xn
     xxx = xn + dx * p["tm_mu_x"].to(dt)
     rank = cfg.rwkv.ddlerp_rank
-    s = torch.tanh(xxx @ p["tm_lora_A"].to(dt)).reshape(B, S, 5, rank)
+    # on a mesh the low-rank activations stay unsharded, as their weights'
+    # "rank" axis is: DTensor cannot split a sharded 5 * rank into (5, rank)
+    s = constrain(torch.tanh(xxx @ p["tm_lora_A"].to(dt)), "act_batch", "act_seq", None)
+    s = constrain(s.reshape(B, S, 5, rank), "act_batch", "act_seq", None, None)
     mix = p["tm_mu"].float() + torch.einsum(
         "bsir,ird->bsid", s.float(), p["tm_lora_B"].float())
     xs = xn[:, :, None] + dx[:, :, None] * mix.to(dt)  # (B, S, 5, d)
-    xr, xw, xk, xv, xg = xs.unbind(2)
+    # (DTensor cannot unbind a sharded dim)
+    xr, xw, xk, xv, xg = constrain(xs, "act_batch", "act_seq", None, None).unbind(2)
 
-    r = (xr @ p["wr"].to(dt)).view(B, S, H, Dh)
-    k = (xk @ p["wk"].to(dt)).view(B, S, H, Dh)
-    v = (xv @ p["wv"].to(dt)).view(B, S, H, Dh)
+    heads = ((B, S, H, Dh), "act_batch", "act_seq", "act_heads", None)
+    r = constrain_view(xr @ p["wr"].to(dt), *heads)
+    k = constrain_view(xk @ p["wk"].to(dt), *heads)
+    v = constrain_view(xv @ p["wv"].to(dt), *heads)
     g = F.silu(xg @ p["wg"].to(dt))
     w_log = p["w0"].float() + (xw.float() @ p["wd_A"].float()) @ p["wd_B"].float()
-    w = torch.exp(-torch.exp(w_log)).view(B, S, H, Dh)  # decay in (0, 1)
-
+    w = constrain_view(torch.exp(-torch.exp(w_log)), *heads)  # decay in (0, 1)
     # the decay is cast to the compute dtype, as the reference does
     out, _ = ops.wkv6(r, k, v, w.to(dt), p["u"], st["S"])
 
@@ -122,18 +146,18 @@ def rwkv_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     mean = of.mean(-1, keepdim=True)
     var = of.var(-1, keepdim=True, unbiased=False)
     of = (of - mean) * torch.rsqrt(var + 64e-5)
-    out = (of.reshape(B, S, d) * p["ln_x"].float()).to(dt)
+    out = (constrain_view(of, (B, S, d), *heads[1:]) * p["ln_x"].float()).to(dt)
     out = out * g
-    x = x + out @ p["wo"].to(dt)
+    x = constrain(x + out @ p["wo"].to(dt), "act_batch", "act_seq", None)
 
     # ---- channel mix ----------------------------------------------------
-    xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    xn2 = constrain(rms_norm(x, p["ln2"], cfg.norm_eps), "act_batch", "act_seq", None)
     dx2 = _shift(xn2, st["ts2"]) - xn2
     xk2 = xn2 + dx2 * p["cm_mu_k"].to(dt)
     xr2 = xn2 + dx2 * p["cm_mu_r"].to(dt)
     gate = torch.sigmoid(xr2 @ p["cm_wr"].to(dt))
-    hk = torch.square(F.relu(xk2 @ p["cm_wk"].to(dt)))
-    x = x + gate * (hk @ p["cm_wv"].to(dt))
+    hk = constrain(torch.square(F.relu(xk2 @ p["cm_wk"].to(dt))), "act_batch", "act_seq", "act_ff")
+    x = constrain(x + gate * (hk @ p["cm_wv"].to(dt)), "act_batch", "act_seq", None)
 
     st["ts1"].copy_(xn[:, -1])
     st["ts2"].copy_(xn2[:, -1])
@@ -160,17 +184,17 @@ def rglru_defs(cfg: ArchConfig) -> dict:
     W, nh, Kc = cfg.rglru.lru_width, cfg.rglru.n_heads, cfg.rglru.conv_width
     wh = W // nh
     return {
-        "ln1": ParamDef((d,), init="ones"),
-        "w_y": ParamDef((d, W)),
-        "w_x": ParamDef((d, W)),
-        "conv_w": ParamDef((Kc, W), init_scale=0.5),
-        "gate_a_w": ParamDef((nh, wh, wh), init_scale=0.5),
-        "gate_a_b": ParamDef((nh, wh), init="zeros"),
-        "gate_i_w": ParamDef((nh, wh, wh), init_scale=0.5),
-        "gate_i_b": ParamDef((nh, wh), init="zeros"),
-        "lam": ParamDef((W,), init="custom", init_fn=_lam_init),
-        "w_out": ParamDef((W, d)),
-        "ln2": ParamDef((d,), init="ones"),
+        "ln1": ParamDef((d,), ("embed",), init="ones"),
+        "w_y": ParamDef((d, W), ("embed", "lru")),
+        "w_x": ParamDef((d, W), ("embed", "lru")),
+        "conv_w": ParamDef((Kc, W), ("conv", "lru"), init_scale=0.5),
+        "gate_a_w": ParamDef((nh, wh, wh), ("lru_heads", None, None), init_scale=0.5),
+        "gate_a_b": ParamDef((nh, wh), ("lru_heads", None), init="zeros"),
+        "gate_i_w": ParamDef((nh, wh, wh), ("lru_heads", None, None), init_scale=0.5),
+        "gate_i_b": ParamDef((nh, wh), ("lru_heads", None), init="zeros"),
+        "lam": ParamDef((W,), ("lru",), init="custom", init_fn=_lam_init),
+        "w_out": ParamDef((W, d), ("lru", "embed")),
+        "ln2": ParamDef((d,), ("embed",), init="ones"),
         "ffn": ffn_defs(cfg),
     }
 
@@ -199,11 +223,12 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     W, nh = cfg.rglru.lru_width, cfg.rglru.n_heads
     wh = W // nh
     dt = x.dtype
-    st = state if state is not None else rglru_init_state(cfg, B, x.device)
+    st = (state if state is not None
+          else _zero_state(rglru_init_state(cfg, B, x.device), RGLRU_STATE_AXES, x))
 
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "act_batch", "act_seq", None)
     y = F.gelu(xn @ p["w_y"].to(dt), approximate="tanh")  # jax.nn.gelu's form
-    xb = xn @ p["w_x"].to(dt)
+    xb = constrain(xn @ p["w_x"].to(dt), "act_batch", "act_seq", "act_lru")
     xc, conv_new = ops.causal_conv1d(xb, p["conv_w"].to(dt), st["conv"])
 
     xh = xc.view(B, S, nh, wh)
@@ -213,8 +238,10 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     log_a = (-8.0 * sp_lam * rg.float()).view(B, S, W)
     gated = (ig * xh).view(B, S, W)
     h, _ = ops.rglru(gated, log_a, st["h"])
+    h = constrain(h, "act_batch", "act_seq", "act_lru")
 
-    x = x + (h * y) @ p["w_out"].to(dt)
-    x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = constrain(x + (h * y) @ p["w_out"].to(dt), "act_batch", "act_seq", None)
+    x = constrain(x + ffn(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps)),
+                  "act_batch", "act_seq", None)
     st["conv"].copy_(conv_new)  # x's dtype, kept as f32 as the reference does
     return x, st

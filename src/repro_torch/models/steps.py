@@ -3,7 +3,11 @@
 
 The train step is functional, as the reference's: (params, opt_state,
 batch) -> (params, opt_state, metrics), params a flat dict of master
-weights keyed by flatten path.
+weights keyed by flatten path.  On a mesh (inside
+``parallel.axes.mesh_context``) the params are DTensors placed by
+``runtime.elastic.reshard_for`` and the batch is sharded over
+``act_batch``; plain tensors made inside the model and the optimizer (RoPE
+tables, masks, schedule scalars) count as replicated.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
+from repro_torch.parallel.axes import plain_as_replicated
 
 
 def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *, n_microbatches: int = 1,
@@ -29,7 +34,12 @@ def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *, n_microbatches
     its first axis) and divides by n; the loss is the mean of the slices'
     losses.
     """
+    with plain_as_replicated():
+        return _loss_and_grads(cfg, params, batch, n_microbatches, dtype)
 
+
+def _loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, n_microbatches: int,
+                    dtype: torch.dtype) -> tuple[torch.Tensor, dict, dict]:
     def one(batch: dict):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         loss, metrics = transformer.loss_fn(leaves, cfg, batch, dtype=dtype)
@@ -72,7 +82,8 @@ def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
                                            n_microbatches=n_microbatches, dtype=dtype)
         if grad_compression:
             grads = compression.compress_tree(grads, method=grad_compression)
-        params, opt_state, opt_metrics = apply_fn(opt, params, opt_state, grads)
+        with plain_as_replicated():
+            params, opt_state, opt_metrics = apply_fn(opt, params, opt_state, grads)
         return params, opt_state, dict(metrics, **opt_metrics)
 
     return train_step

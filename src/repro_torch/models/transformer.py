@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import params as pmod
 from repro_torch.models import recurrent
 from repro_torch.models.layers import (
@@ -43,6 +44,7 @@ from repro_torch.models.layers import (
     self_attention,
 )
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.axes import constrain, recompute_contexts
 
 
 # ---------------------------------------------------------------------------
@@ -62,16 +64,16 @@ def layer_defs(cfg: ArchConfig, kind: str, with_cross: bool = False) -> dict:
         return recurrent.rglru_defs(cfg)
     d = cfg.d_model
     defs = {
-        "ln1": ParamDef((d,), init="ones"),
+        "ln1": ParamDef((d,), ("embed",), init="ones"),
         "attn": attention_defs(cfg),
-        "ln2": ParamDef((d,), init="ones"),
+        "ln2": ParamDef((d,), ("embed",), init="ones"),
     }
     if cfg.moe is not None:
         defs["moe"] = moe_defs(cfg)
     else:
         defs["ffn"] = ffn_defs(cfg)
     if with_cross:
-        defs["ln_x"] = ParamDef((d,), init="ones")
+        defs["ln_x"] = ParamDef((d,), ("embed",), init="ones")
         defs["xattn"] = attention_defs(cfg, cross=True)
     return defs
 
@@ -79,7 +81,7 @@ def layer_defs(cfg: ArchConfig, kind: str, with_cross: bool = False) -> dict:
 def _stack(defs: Any, n: int) -> Any:
     if isinstance(defs, dict):
         return {k: _stack(v, n) for k, v in defs.items()}
-    return dataclasses.replace(defs, shape=(n,) + defs.shape)
+    return dataclasses.replace(defs, shape=(n,) + defs.shape, axes=("layers",) + defs.axes)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -98,16 +100,16 @@ def model_defs(cfg: ArchConfig) -> dict:
         for pattern, repeats in cfg.block_groups
     ]
     defs: dict[str, Any] = {
-        "embed": ParamDef((V, d)),
+        "embed": ParamDef((V, d), ("vocab", "embed")),
         "groups": groups,
-        "ln_f": ParamDef((d,), init="ones"),
+        "ln_f": ParamDef((d,), ("embed",), init="ones"),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, V))
+        defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
     if cfg.enc_dec:
         defs["encoder"] = {
             "blocks": _stack(layer_defs(cfg, "global"), cfg.n_enc_layers),
-            "ln_f": ParamDef((d,), init="ones"),
+            "ln_f": ParamDef((d,), ("embed",), init="ones"),
         }
     return defs
 
@@ -190,10 +192,12 @@ def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
 # Functional passes over a flat param dict
 # ---------------------------------------------------------------------------
 def embed_tokens(params: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return params["embed"][tokens].to(dtype)
+    return constrain(ops.embedding(params["embed"], tokens).to(dtype),
+                     "act_batch", "act_seq", None)
 
 
 def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    h = constrain(h, "act_batch", "act_seq", None)
     if cfg.tie_embeddings:
         return h @ params["embed"].to(h.dtype).T
     return h @ params["lm_head"].to(h.dtype)
@@ -227,11 +231,14 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
         cache_g = {}
         layers = [_layers(params, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
         for r in range(repeats):
+            # the residual stream at the boundary of the reference's scan body
+            h = constrain(h, "act_batch", "act_res_seq", None)
             for i, kind in enumerate(pattern):
                 apply = functools.partial(apply_layer, cfg, kind, causal=causal,
                                           positions=positions, enc_out=enc_out)
                 if not collect_cache:
-                    h, a, _ = (checkpoint(apply, layers[i][r], h, use_reentrant=False) if remat
+                    h, a, _ = (checkpoint(apply, layers[i][r], h, use_reentrant=False,
+                                          context_fn=recompute_contexts) if remat
                                else apply(layers[i][r], h))
                     if a is not None:
                         aux = aux + a
@@ -267,8 +274,11 @@ def run_encoder(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
     positions = torch.arange(h.shape[1], device=h.device)
     apply = functools.partial(apply_layer, cfg, "global", causal=False, positions=positions)
     remat = _remat(cfg)
+    h = constrain(h, "act_batch", "act_seq", None)
     for p in _layers(params, "encoder/blocks/", cfg.n_enc_layers):
-        h, _, _ = checkpoint(apply, p, h, use_reentrant=False) if remat else apply(p, h)
+        h = constrain(h, "act_batch", "act_res_seq", None)
+        h, _, _ = (checkpoint(apply, p, h, use_reentrant=False, context_fn=recompute_contexts)
+                   if remat else apply(p, h))
     return rms_norm(h, params["encoder/ln_f"], cfg.norm_eps)
 
 
@@ -313,7 +323,8 @@ def lm_loss(params: dict, cfg: ArchConfig, h: torch.Tensor, labels: torch.Tensor
     if nc == 1:
         nll, zl, cnt = ce(h, labels, mask)
     else:
-        run = (lambda *a: checkpoint(ce, *a, use_reentrant=False)) \
+        run = (lambda *a: checkpoint(ce, *a, use_reentrant=False,
+                                     context_fn=recompute_contexts)) \
             if torch.is_grad_enabled() else ce
         nll = zl = cnt = torch.zeros((), device=h.device)
         for c in range(nc):

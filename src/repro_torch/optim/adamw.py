@@ -49,10 +49,9 @@ def init(params: dict) -> AdamWState:
     device = next(iter(params.values())).device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()},
-        v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()})
+        # zeros_like: on a mesh the moments are placed as their parameters
+        m={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+        v={k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()})
 
 
 def global_norm(tree: dict) -> torch.Tensor:

@@ -2,14 +2,16 @@
 (after ``repro.parallel.compression``, ``compress_tree`` and its helpers).
 
 ``compress_tree`` models the accuracy effect of an int8 all-reduce with one
-f32 scale per block of 256 values.  The collective that moves int8 on the
-wire (the reference's ``compressed_psum``) is not ported yet.
+f32 scale per block of 256 values.  ``compressed_psum`` is the collective
+that moves it on the wire: quantize -> all-reduce int32 -> dequantize, over
+one dim of a DeviceMesh (NCCL on the card, gloo on the CPU).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
 BLOCK = 256
 
@@ -43,3 +45,20 @@ def compress_tree(grads: dict, method: str | None = "int8") -> dict:
         return _dequant_int8(q, s, g.shape, g.dtype)
 
     return {k: qdq(g) for k, g in grads.items()}
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-reduce ``x`` (the same shape on every rank of the ``axis`` group)
+    moving int8 payloads (as int32 sums) and f32 block scales: each rank's
+    payload quantized with its own scales, the payloads summed exactly, and
+    dequantized by the mean of the ranks' scales, as the reference does."""
+    group = mesh.get_group(axis)
+    q, s = _quant_int8(x)
+    # int32 accumulation of int8 payloads: exact for <= 2^23 ranks
+    q32 = q.to(torch.int32)
+    dist.all_reduce(q32, group=group)
+    s_sum = s.clone()
+    dist.all_reduce(s_sum, group=group)
+    n = torch.tensor(float(dist.get_world_size(group)), dtype=torch.float32, device=s.device)
+    deq = q32.to(torch.float32) * (s_sum / n)
+    return deq.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)

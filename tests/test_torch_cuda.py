@@ -1036,15 +1036,64 @@ def test_kernels_without_a_mask_at_sq_ne_sk_match_plain(cuda, case, dtype):
 
 
 def test_a_mask_at_sq_ne_sk_raises_on_card(cuda):
-    """A causal mask, a window, a chunk or q_offset at Sq != Sk is not
-    ported to the card: it raises, and nothing falls back."""
+    """A causal mask, a window, a chunk or q_offset at Sq != Sk reaches the
+    kernel on the card (it raised before the kernels took a query offset):
+    each against its plain version."""
     from repro_torch.kernels import ops
 
     q, k, v = _qkv_cross(CROSS_CASES[0], torch.float32, cuda)
     for kw in (dict(), dict(causal=False, window=64), dict(causal=False, chunk=64),
-               dict(causal=False, q_offset=8)):
-        with pytest.raises(NotImplementedError):
-            ops.flash_attention(q, k, v, **kw)
+               dict(causal=False, q_offset=8), dict(causal=True, q_offset=400)):
+        before = fa.launches
+        with torch.inference_mode():
+            got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL[torch.float32])
+
+
+# (B, Sq, Sk, H, KV, D, causal, window, chunk, softcap, q_offset): context-
+# parallel shards (the last and a middle 128 rows of 2048 keys; bf16 q tiles
+# of 128), a window and a chunk at an offset, D 256, and a ragged shard
+OFFSET_CASES = [
+    (2, 128, 2048, 6, 2, 64, True, 0, 0, 0.0, 1920),
+    (1, 128, 2048, 12, 1, 128, True, 0, 0, 0.0, 896),
+    (1, 200, 1024, 4, 2, 128, True, 300, 0, 0.0, 500),
+    (1, 96, 512, 4, 2, 64, True, 0, 100, 0.0, 250),
+    (1, 64, 300, 4, 1, 256, True, 0, 0, 30.0, 200),
+    (1, 77, 333, 2, 2, 32, False, 0, 0, 0.0, 13),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_kernels_at_a_query_offset_match_plain(cuda, case, dtype):
+    """The forward, the LSE forward and the backward at q_offset != 0, each
+    against its plain version; two backward runs bit-identical."""
+    B, Sq, Sk, H, KV, D = case[:6]
+    kw = dict(causal=case[6], window=case[7], chunk=case[8], softcap=case[9],
+              q_offset=case[10])
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, dtype)
+                   for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+    before = dict(fa.offset_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    o_r, lse_r = ref.attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, o_r, dtype)
+    _assert_bwd_close(o, o_r, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_r.cpu().numpy(), atol=1e-5)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        _assert_bwd_close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert fa.offset_launches == {"fwd": before["fwd"] + 1, "fwd_lse": before["fwd_lse"] + 1,
+                                  "bwd": before["bwd"] + 2}
 
 
 def test_seamless_prefill_on_card_launches_flash_by_mask(cuda):

@@ -379,8 +379,10 @@ def test_flash_without_mask_at_sq_ne_sk_matches_the_reference(case):
 
 
 def test_a_mask_at_sq_ne_sk_stays_off_the_card_path():
-    """A causal mask, a window, a chunk or q_offset at Sq != Sk runs the
-    plain version on the CPU and raises for a tensor off the CPU."""
+    """A causal mask, a window, a chunk or q_offset at Sq != Sk goes to the
+    kernel wrappers like any other shape: the plain version on the CPU, and
+    for a tensor on neither the CPU nor the card a raise, with no
+    fallback."""
     q, k, v, _ = _flash_inputs(FLASH_CASES[0])
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     want = np.asarray(jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True))
@@ -388,5 +390,5 @@ def test_a_mask_at_sq_ne_sk_stays_off_the_card_path():
     meta = [t.to("meta") for t in (tq, tk, tv)]
     for kw in (dict(), dict(causal=False, window=8), dict(causal=False, chunk=8),
                dict(causal=False, q_offset=4)):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="unsupported device"):
             ops.flash_attention(*meta, **kw)

@@ -169,10 +169,11 @@ def test_cpu_path_does_not_count_launches():
 
 
 def test_off_cpu_unported_shapes_raise():
-    """On a non-CPU tensor there is no plain fallback: Sq != Sk raises."""
+    """On a non-CPU tensor there is no plain fallback: a tensor on neither
+    the CPU nor the card raises, at Sq != Sk and q_offset too."""
     q = torch.empty((1, 4, 2, 64), device="meta")
     k = torch.empty((1, 8, 2, 64), device="meta")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(q, k, k, q_offset=4)
     with pytest.raises(ValueError, match="device"):
         fa.flash_attention(q, q, q)

@@ -304,7 +304,8 @@ def test_materialize_keeps_the_reference_init_rule():
     requested device, reproducible from the seed; names follow the
     reference's flatten order; a "custom" init (rwkv's decay w0) gives the
     reference's values up to f32 rounding."""
-    defs = {"w": pmod.ParamDef((4, 64, 256)), "g": pmod.ParamDef((8,), init="ones")}
+    defs = {"w": pmod.ParamDef((4, 64, 256), ("layers", "embed", "ff")),
+            "g": pmod.ParamDef((8,), ("embed",), init="ones")}
     a, b = pmod.materialize(defs, seed=5), pmod.materialize(defs, seed=5)
     assert torch.equal(a["w"], b["w"]) and torch.equal(a["g"], torch.ones(8))
     assert abs(a["w"].std().item() * (4 * 64) ** 0.5 - 1.0) < 0.02
@@ -333,7 +334,8 @@ def test_materialize_keeps_the_reference_init_rule():
     assert custom == ["groups/0/p0/lam", "groups/0/p1/lam", "groups/1/p0/lam"]
     for k in custom:
         want = np.asarray(jflat[k].init_fn(jax.random.PRNGKey(5), (4096,), jnp.float32))
-        got = pmod.materialize({"lam": dataclasses.replace(tflat[k], shape=(4096,))},
+        got = pmod.materialize({"lam": dataclasses.replace(tflat[k], shape=(4096,),
+                                                          axes=("lru",))},
                                seed=5)["lam"].numpy()
         for lam in (want, got):
             a = np.exp(-8.0 * np.logaddexp(lam, 0.0))
