@@ -1,4 +1,4 @@
-"""Architecture configuration schema (copy of ``repro.configs.base``).
+"""Architecture and shape configuration schema (copy of ``repro.configs.base``).
 
 Layers are organised into *block groups*: ``(pattern, repeats)`` pairs.  The
 port runs each group as a Python loop over the stacked layer index.
@@ -43,6 +43,28 @@ class RWKVSpec:
     head_dim: int = 64
     ddlerp_rank: int = 32
     decay_rank: int = 64
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclass(frozen=True)
@@ -130,6 +152,17 @@ class ArchConfig:
             routed += dense
         return routed
 
+    def ffn_active_params(self) -> int:
+        """The FFN parameters one token runs through: top_k experts (and
+        the shared one) of an MoE FFN, and its router."""
+        dense = (3 if self.ffn_gated else 2) * self.d_model * self.d_ff
+        if self.moe is None:
+            return dense
+        active = self.moe.top_k * dense + self.d_model * self.moe.n_experts
+        if self.moe.shared_expert:
+            active += dense
+        return active
+
     def rglru_params(self) -> int:
         assert self.rglru is not None
         w = self.rglru.lru_width
@@ -158,6 +191,16 @@ class ArchConfig:
             return self.rwkv_params() + norms
         raise ValueError(kind)
 
+    def _layer_active_params(self, kind: str) -> int:
+        norms = 2 * self.d_model
+        if kind in ATTN_KINDS:
+            return self.attn_params() + self.ffn_active_params() + norms
+        if kind == "rglru":
+            return self.rglru_params() + self.ffn_active_params() + norms
+        if kind == "rwkv":
+            return self.rwkv_params() + norms
+        raise ValueError(kind)
+
     def param_count(self) -> int:
         n = sum(self._layer_params(k) for k in self.layer_kinds())
         n += self.vocab_size * self.d_model  # embed
@@ -166,6 +209,20 @@ class ArchConfig:
         n += self.d_model  # final norm
         if self.enc_dec:
             # encoder self-attn+ffn layers and decoder cross-attn additions
+            enc = self.n_enc_layers * (self.attn_params() + self.ffn_params() + 2 * self.d_model)
+            cross = self.count_kind(*ATTN_KINDS) * (self.attn_params() + self.d_model)
+            n += enc + cross + self.d_model
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (N of the 6 N D rule); the
+        encoder's FFNs count whole, as the reference counts them."""
+        n = sum(self._layer_active_params(k) for k in self.layer_kinds())
+        n += self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        n += self.d_model
+        if self.enc_dec:
             enc = self.n_enc_layers * (self.attn_params() + self.ffn_params() + 2 * self.d_model)
             cross = self.count_kind(*ATTN_KINDS) * (self.attn_params() + self.d_model)
             n += enc + cross + self.d_model

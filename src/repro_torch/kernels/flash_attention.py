@@ -14,7 +14,10 @@ with its rows, and a key tile's q rows still shrink with its keys.
 
 On CPU tensors each wrapper returns its plain version (``ref.attention_ref``,
 ``ref.attention_lse_ref``, ``ref.flash_bwd_ref``).  On CUDA tensors it
-launches the kernel or raises; nothing falls back.
+launches the kernel or raises; nothing falls back.  A ``FakeTensor`` (a
+step traced by ``launch.dryrun``, on any device) takes the fake route:
+empty outputs of the kernel's shapes, and the kernel's work added to
+``cost.fake``; a real tensor never does.
 
 The forward's design follows the dtype (``DESIGNS``): bf16 runs on the
 tensor cores (wgmma, tiles loaded by TMA), f32 keeps a CUDA-core kernel so
@@ -33,8 +36,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -196,7 +201,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v must be contiguous in the head dim")
     if window < 0 or chunk < 0 or softcap < 0 or q_offset < 0:
         raise ValueError("window, chunk, softcap and q_offset must be >= 0")
-    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+
+
+def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The bf16 forward's TMA rule, for real CUDA tensors."""
+    if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not aligned_for_tma(t):
                 raise ValueError(
@@ -212,6 +221,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     None)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _check_tma(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -238,6 +248,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return o, lse
 
 
+def _fake_fwd(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int, chunk: int,
+              q_offset: int, with_lse: bool):
+    """The fake route: a traced call's outputs, (o, lse (B, H, Sq) f32 or
+    None), empty, and its work added to ``cost.fake``."""
+    B, Sq, H, D = q.shape
+    cost.record("flash_attention_fwd_lse" if with_lse else "flash_attention_fwd", cost.flash_fwd(
+        B, Sq, k.shape[1], H, k.shape[2], D, q.element_size(), causal=causal, window=window,
+        chunk=chunk, q_offset=q_offset, with_lse=with_lse))
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32) if with_lse else None
+    return q.new_empty((B, Sq, H, D)), lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
@@ -245,6 +267,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query positions start at q_offset, key positions at 0."""
     global launches, cross_launches
     _check(q, k, v, window=window, chunk=chunk, softcap=softcap, q_offset=q_offset)
+    if isinstance(q, FakeTensor):
+        return _fake_fwd(q, k, causal=causal, window=window, chunk=chunk,
+                         q_offset=q_offset, with_lse=False)[0]
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk, softcap=softcap, q_offset=q_offset)
@@ -266,6 +291,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head h = kv * G + g, that ``flash_attention_bwd`` reads."""
     global lse_launches
     _check(q, k, v, window=window, chunk=chunk, softcap=softcap, q_offset=q_offset)
+    if isinstance(q, FakeTensor):
+        return _fake_fwd(q, k, causal=causal, window=window, chunk=chunk,
+                         q_offset=q_offset, with_lse=True)
     if q.device.type == "cpu":
         return ref.attention_lse_ref(q, k, v, causal=causal, window=window,
                                      chunk=chunk, softcap=softcap, q_offset=q_offset)
@@ -294,6 +322,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"lse must be ({B}, {H}, {Sq}) float32, got {tuple(lse.shape)} {lse.dtype}")
     if any(t.device != q.device for t in (o, lse, do)):
         raise ValueError("o, lse and do must lie on q's device")
+    if isinstance(q, FakeTensor):
+        cost.record("flash_attention_bwd", cost.flash_bwd(
+            B, Sq, k.shape[1], H, k.shape[2], D, q.element_size(), causal=causal,
+            window=window, chunk=chunk, q_offset=q_offset))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
                                  chunk=chunk, softcap=softcap, q_offset=q_offset)

@@ -31,6 +31,7 @@ route.  ``embedding`` looks up each rank's own tokens the same way.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -231,8 +232,98 @@ def decode_attention(
     chunk: int = 0,
     softcap: float = 0.0,
 ) -> torch.Tensor:
+    if _on_mesh(q, k_cache, v_cache):
+        return _decode_sharded(q, k_cache, v_cache, slot_pos, pos, window=window, chunk=chunk,
+                               softcap=softcap)
     return ref.decode_attention_ref(q, k_cache, v_cache, slot_pos, pos,
                                     window=window, chunk=chunk, softcap=softcap)
+
+
+def _decode_scores(q, k_cache, slot_pos, pos, *, window, chunk, softcap):
+    """``ref.decode_attention_ref``'s f32 scores (B, KV, G, L) and its mask
+    (B, 1, 1, L) over the slots given."""
+    B, _, H, D = q.shape
+    _, L, KV, _ = k_cache.shape
+    qf = q.float().reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,blkd->bkgl", qf, k_cache.float()) / math.sqrt(D)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - slot_pos) < window
+    if chunk > 0:
+        valid &= torch.div(slot_pos, chunk, rounding_mode="floor") == \
+            torch.div(pos[:, None], chunk, rounding_mode="floor")
+    return s, valid[:, None, None, :]
+
+
+def _decode_sharded(q, k_cache, v_cache, slot_pos, pos, *, window, chunk, softcap):
+    """Decode attention over a cache sharded as the rules place it (batch,
+    and the sequence over ``cache_seq``'s dims; kv heads where they are
+    sharded): each rank scores its own slots, and the softmax is joined
+    across the sequence's shards (flash decoding): the row maximum by a
+    max-reduction, then the exponentials' sum and their product with V by
+    a sum-reduction.  Exact up to the order of the sums."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = paxes.current_mesh()
+    c_pl = paxes.placements_for(k_cache.shape,
+                                ("cache_batch", "cache_seq", "act_kv_heads", None))
+    on = {0: [], 1: [], 2: []}  # tensor dim of the cache -> mesh dims sharding it
+    for i, p in enumerate(c_pl):
+        if isinstance(p, Shard):
+            on[p.dim].append(i)
+
+    def pl(dims: dict, seq=None):
+        """Placements sharding tensor dim d over the mesh dims that shard
+        the cache's dim ``dims[d]``; the sequence's mesh dims get ``seq``."""
+        out = [Replicate()] * mesh.ndim
+        for d, cache_dim in dims.items():
+            for i in on[cache_dim]:
+                out[i] = Shard(d)
+        if seq is not None:
+            for i in on[1]:
+                out[i] = seq
+        return tuple(out)
+
+    def dist(t, p):
+        if isinstance(t, DTensor):
+            return t
+        return distribute_tensor(t, mesh, p, src_data_rank=None)
+
+    q_pl, kv_pl = pl({0: 0, 2: 2}), tuple(c_pl)
+    sp_pl, pos_pl = pl({0: 0, 1: 1}), pl({0: 0})
+    stat_pl = pl({0: 0, 1: 2})  # (B, KV, G): batch and kv heads
+    args = (q, k_cache, v_cache, dist(slot_pos, sp_pl), dist(pos, pos_pl))
+    in_pl = (q_pl, kv_pl, kv_pl, sp_pl, pos_pl)
+    mask = dict(window=window, chunk=chunk, softcap=softcap)
+
+    def local_max(qs, ks, vs, sps, ps):
+        s, valid = _decode_scores(qs, ks, sps, ps, **mask)
+        return torch.where(valid, s, ref.NEG_INF).amax(-1)
+
+    m = local_map(local_max, out_placements=list(pl({0: 0, 1: 2}, Partial("max"))),
+                  in_placements=in_pl, device_mesh=mesh, redistribute_inputs=True)(*args)
+    m = m.redistribute(mesh, stat_pl)
+
+    def local_sums(qs, ks, vs, sps, ps, ms):
+        s, valid = _decode_scores(qs, ks, sps, ps, **mask)
+        p = torch.where(valid, torch.exp(s - ms[..., None]), 0.0)
+        return p.sum(-1), torch.einsum("bkgl,blkd->bkgd", p, vs.float())
+
+    l, o = local_map(local_sums, out_placements=(pl({0: 0, 1: 2}, Partial()),
+                                                 pl({0: 0, 1: 2}, Partial())),
+                     in_placements=in_pl + (stat_pl,), device_mesh=mesh,
+                     redistribute_inputs=True)(*args, m)
+    o_pl = pl({0: 0, 1: 2})
+
+    def normed(ls, os_, qs):
+        o_ = torch.where(ls[..., None] > 0, os_ / ls[..., None], 0.0)
+        return o_.reshape(qs.shape).to(qs.dtype)
+
+    return local_map(normed, out_placements=list(q_pl), in_placements=(stat_pl, o_pl, q_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        l.redistribute(mesh, stat_pl), o.redistribute(mesh, o_pl), q)
 
 
 def wkv6(

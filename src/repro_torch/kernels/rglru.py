@@ -16,7 +16,8 @@ version's bits.
 
 On CPU tensors each wrapper returns its plain version (``ref.rglru_ref``,
 ``ref.rglru_bwd_ref``).  On CUDA tensors it launches the kernel or raises;
-nothing falls back.  A given ``h0`` is updated in place, so prefill writes
+nothing falls back.  A ``FakeTensor`` takes the fake route, as in
+``flash_attention``.  A given ``h0`` is updated in place, so prefill writes
 each layer's final state straight into its cache slice and decode (S = 1)
 updates that slice.
 """
@@ -28,8 +29,10 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,12 +90,16 @@ def rglru(x: torch.Tensor, log_a: torch.Tensor, h0: Optional[torch.Tensor] = Non
     a new one); without one a new final state is returned."""
     global launches
     _check(x, log_a, h0)
+    B, S, W = x.shape
+    if isinstance(x, FakeTensor):
+        cost.record("rglru_fwd", cost.rglru_fwd(B, S, W, x.element_size(), log_a.element_size()))
+        return x.new_empty((B, S, W)), (
+            x.new_empty((B, W), dtype=torch.float32) if h0 is None else h0)
     if x.device.type == "cpu":
         out, h = ref.rglru_ref(x, log_a, h0)
         return out, (h if h0 is None else h0.copy_(h))
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B, S, W = x.shape
     o = torch.empty((B, S, W), dtype=x.dtype, device=x.device)
     if o.numel() == 0:
         return o, (torch.zeros((B, W), dtype=torch.float32, device=x.device)
@@ -138,6 +145,9 @@ def rglru_bwd(x: torch.Tensor, log_a: torch.Tensor, h0: Optional[torch.Tensor],
                            or dh.device != x.device or not dh.is_contiguous()):
         raise ValueError(f"dh must be f32 contiguous {(B, W)} on {x.device}; got "
                          f"{dh.dtype} {tuple(dh.shape)} on {dh.device}")
+    if isinstance(x, FakeTensor):
+        cost.record("rglru_bwd", cost.rglru_bwd(B, S, W, x.element_size(), log_a.element_size()))
+        return torch.empty_like(x), torch.empty_like(log_a), x.new_empty((B, W), dtype=torch.float32)
     if x.device.type == "cpu":
         return ref.rglru_bwd_ref(x, log_a, h0, do, dh)
     if x.device.type != "cuda":

@@ -2,7 +2,8 @@
 ``repro/kernels/rwkv6_scan.py``.
 
 On a CPU tensor it returns the plain version (``ref.wkv6_ref``).  On a CUDA
-tensor it launches a kernel or raises; nothing falls back.  Unlike the
+tensor it launches a kernel or raises; nothing falls back.  A
+``FakeTensor`` takes the fake route, as in ``flash_attention``.  Unlike the
 Pallas kernel it takes an initial state, so decode (S = 1 with the carried
 state) runs through it too.
 
@@ -29,8 +30,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import aligned_for_tma
 
@@ -109,12 +112,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     the two; the chunked kernel takes bf16 only."""
     global launches
     _check(r, k, v, w, u, state)
+    B, S, H, D = r.shape
+    if isinstance(r, FakeTensor):
+        cost.record("wkv6_fwd", cost.wkv6_fwd(B, S, H, D, r.element_size()))
+        return r.new_empty((B, S, H, D)), (
+            r.new_empty((B, H, D, D), dtype=torch.float32) if state is None else state)
     if r.device.type == "cpu":
         out, s = ref.wkv6_ref(r, k, v, w, u, state)
         return out, (s if state is None else state.copy_(s))
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
-    B, S, H, D = r.shape
     kernel = kernel or design(r.dtype)
     if kernel not in ENTRY:
         raise ValueError(f"unknown kernel {kernel!r}; one of {list(ENTRY)}")
@@ -346,6 +353,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown backward kernel {kernel!r}; one of {list(BWD_ENTRY)}")
     if kernel == BWD_CHUNKED and r.dtype != torch.bfloat16:
         raise ValueError(f"the chunked backward takes bf16; got {r.dtype}")
+    if isinstance(r, FakeTensor):
+        cost.record("wkv6_bwd", cost.wkv6_bwd(B, S, H, D, r.element_size(),
+                                              with_state=state is not None))
+        return (*(torch.empty_like(t) for t in (r, k, v, w)),
+                r.new_empty((H, D), dtype=torch.float32),
+                r.new_empty((B, H, D, D), dtype=torch.float32))
     if r.device.type == "cpu":
         return ref.wkv6_bwd_ref(r, k, v, w, u, state, do, ds)
     if r.device.type != "cuda":

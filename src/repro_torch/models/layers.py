@@ -13,11 +13,14 @@ matmuls over flattened head dims so q / k / v come out contiguous in the
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig, MoESpec
 from repro_torch.kernels import ops
@@ -102,6 +105,25 @@ def _project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
+class _Sites(threading.local):
+    attn_out: bool = False
+
+
+# where the running code is, for a remat policy: ``attn_out`` is set while
+# self-attention's output projection runs (the tensor the reference tags
+# "attn_out"); the recompute sets it again where it runs the layer again
+SITES = _Sites()
+
+
+@contextlib.contextmanager
+def attn_out_site():
+    SITES.attn_out = True
+    try:
+        yield
+    finally:
+        SITES.attn_out = False
+
+
 def _mask(cfg: ArchConfig, kind: str) -> tuple[int, int]:
     """(window, chunk) of a ``kind`` layer, 0 = unbounded: ``cfg.window`` is
     a local layer's sliding window and a chunked layer's chunk."""
@@ -126,8 +148,9 @@ def self_attention(
     o = ops.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                             softcap=cfg.attn_logit_softcap)
     o = constrain(o, "act_batch", "act_seq", "act_heads", None)
-    out = constrain(_out_proj(o, p["wo"]), "act_batch", "act_seq", None)
-    return out, (k, v)
+    with attn_out_site():
+        out = _out_proj(o, p["wo"])
+    return constrain(out, "act_batch", "act_seq", None), (k, v)
 
 
 def cross_attention(
@@ -152,15 +175,15 @@ def decode_cross_attention(
     cfg: ArchConfig,
 ) -> torch.Tensor:
     """One token's cross-attention over the cached encoder keys and values,
-    the reference's jnp in plain PyTorch: scores and softmax in f32, the
-    output in x's dtype."""
-    B, dt = x.shape[0], x.dtype
+    the reference's jnp: ``ops.decode_attention`` with every encoder slot
+    valid (scores and softmax in f32, the output in x's dtype), which on a
+    mesh joins the softmax across the cache's sequence shards."""
+    B, Se = x.shape[0], xk.shape[1]
     q = _heads_proj(x, p["wq"], "act_heads")  # (B, 1, H, Dh)
-    H, KV = q.shape[2], xk.shape[2]
-    qf = q.float().reshape(B, KV, H // KV, cfg.d_head)
-    s = torch.einsum("bkgd,blkd->bkgl", qf, xk.float()) / math.sqrt(cfg.d_head)
-    o = torch.einsum("bkgl,blkd->bkgd", torch.softmax(s, dim=-1), xv.float())
-    return _out_proj(o.reshape(B, 1, H, cfg.d_head).to(dt), p["wo"])
+    slots = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    o = ops.decode_attention(q, xk, xv, slots,
+                             torch.full((B,), Se, dtype=torch.long, device=x.device))
+    return _out_proj(o, p["wo"])
 
 
 def decode_self_attention(
@@ -188,10 +211,17 @@ def decode_self_attention(
     positions = torch.tensor([pos], device=x.device)
     q, k, v = _project_qkv(p, x, x, cfg, positions)
     slot = pos % L  # ring slot (== pos for a full-length global cache)
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-    # absolute position the reference assigns to each slot of the ring
     idx = torch.arange(L, device=x.device)
+    if isinstance(k_cache, DTensor):
+        # a sequence-sharded cache: DTensor cannot write one slot in place,
+        # so the slot is selected and the cache rewritten in its layout
+        hit = (idx == slot)[None, :, None, None]
+        k_cache.copy_(torch.where(hit, k.to(k_cache.dtype), k_cache))
+        v_cache.copy_(torch.where(hit, v.to(v_cache.dtype), v_cache))
+    else:
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    # absolute position the reference assigns to each slot of the ring
     if kind == "global":
         slot_pos = torch.where(idx <= pos, idx, torch.full_like(idx, -1))
     else:
@@ -273,6 +303,11 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     rounded to x's dtype as the reference rounds them.  No float is summed by
     a scatter, so the result does not depend on the order of the card's
     threads.
+
+    On a mesh (a DTensor ``x``) the routing, the gather and the combine run
+    on every rank alike over the whole batch (DTensor places no sort or
+    integer scatter): x and the router are gathered, and the experts' batched
+    matmuls run on their sharded weights as DTensor ops.
     """
     spec = cfg.moe
     assert spec is not None
@@ -284,13 +319,21 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
         G -= 1
     ng = T // G
     C = _capacity(spec, G)
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
     # dispatch sees whole groups: the sequence unsharded (the reference's
     # dispatch and combine constraints have no tensor here to stand on)
     x = constrain(x, "act_batch", "act_seq", None)
-    xf = x.reshape(T, d)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    rep = [Replicate()] * mesh.ndim if mesh is not None else None
 
-    logits = (xf.float() @ p["router"].float()).view(ng, G, E)
+    def local(t):  # every rank's whole copy of a DTensor
+        return t if mesh is None else t.redistribute(mesh, rep).to_local()
+
+    def placed(t):  # a whole copy that every rank holds alike, as a DTensor
+        return t if mesh is None else DTensor.from_local(t, mesh, rep, run_check=False)
+
+    xf = local(x).reshape(T, d)
+    logits = (xf.float() @ local(p["router"]).float()).view(ng, G, E)
     probs = torch.softmax(logits, dim=-1)
     # top-K; a stable descending sort puts equal probabilities in expert order
     idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
@@ -305,6 +348,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     keep = pos < C
     # each kept slot's row (expert, group, place) of the expert buffer; the
     # dropped ones point one past its end, at a zero row
+    dev = xf.device
     n_rows = E * ng * C
     group = torch.arange(ng, device=dev).view(ng, 1, 1)
     row = torch.where(keep, (idx * ng + group) * C + pos, n_rows)
@@ -313,16 +357,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     table[row.reshape(-1)] = token.reshape(-1)  # kept rows are distinct
 
     x0 = torch.cat([xf, xf.new_zeros(1, d)])
-    xin = x0.index_select(0, table[:n_rows]).view(E, ng * C, d)
+    xin = placed(x0.index_select(0, table[:n_rows]).view(E, ng * C, d))
     h = F.silu(torch.bmm(xin, p["w_gate"].to(dt))) * torch.bmm(xin, p["w_up"].to(dt))
-    eo = torch.bmm(h, p["w_down"].to(dt)).view(n_rows, d)
+    eo = local(torch.bmm(h, p["w_down"].to(dt))).view(n_rows, d)
     eo = torch.cat([eo, eo.new_zeros(1, d)])
     row = row.view(T, K)
     w = torch.where(keep, gates, 0.0).to(dt).float().view(T, K)
     out = eo.index_select(0, row[:, 0]).float() * w[:, :1]
     for k in range(1, K):
         out = out + eo.index_select(0, row[:, k]).float() * w[:, k:k + 1]
-    out = constrain(out.to(dt).view(B, S, d), "act_batch", "act_seq", None)
+    out = constrain(placed(out.to(dt).view(B, S, d)), "act_batch", "act_seq", None)
 
     if "shared" in p:
         out = out + ffn(p["shared"], x)
@@ -334,5 +378,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     z = torch.logsumexp(logits, dim=-1)
     z_loss = (z ** 2).mean() * spec.router_z_loss
     dropped = 1.0 - keep.sum() / (ng * G * K)
-    aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss, "moe_dropped_frac": dropped}
+    aux = {"moe_lb_loss": placed(lb_loss), "moe_z_loss": placed(z_loss),
+           "moe_dropped_frac": placed(dropped)}
     return out, aux

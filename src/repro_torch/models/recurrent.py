@@ -90,8 +90,19 @@ def rwkv_init_state(cfg: ArchConfig, batch: int, device: torch.device | str = "c
     }
 
 
-# the states' logical axes on a mesh: batch and heads (or channels) as the
-# inputs of the kernels that update them
+def rwkv_state_axes(cfg: ArchConfig) -> dict:
+    """A decode cache's RWKV-6 state axes (the reference's)."""
+    return {"S": ("cache_batch", "act_heads", None, None), "ts1": ("cache_batch", None),
+            "ts2": ("cache_batch", None)}
+
+
+def rglru_state_axes(cfg: ArchConfig) -> dict:
+    """A decode cache's RG-LRU state axes (the reference's)."""
+    return {"h": ("cache_batch", "act_lru"), "conv": ("cache_batch", None, "act_lru")}
+
+
+# a block's own zero state's logical axes on a mesh: batch and heads (or
+# channels) as the inputs of the kernels that update them
 RWKV_STATE_AXES = {"S": ("act_batch", "act_heads", None, None), "ts1": ("act_batch", None),
                    "ts2": ("act_batch", None)}
 RGLRU_STATE_AXES = {"h": ("act_batch", "act_lru"), "conv": ("act_batch", None, "act_lru")}

@@ -15,13 +15,14 @@ import os
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
-from repro_torch.parallel.axes import plain_as_replicated
+from repro_torch.parallel.axes import constrain, plain_as_replicated
 
 
 def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *, n_microbatches: int = 1,
@@ -53,10 +54,9 @@ def _loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, n_microbatches: 
     if any(x.shape[0] % n for x in batch.values()):
         raise ValueError(f"a batch of {len(batch['tokens'])} does not split into "
                          f"{n} microbatches")
-    micro = [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i] for k, x in batch.items()}
-             for i in range(n)]
-    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
+    micro = [{k: _microbatch(x, n, i) for k, x in batch.items()} for i in range(n)]
+    # zeros_like: on a mesh each accumulator is placed as its parameter
+    grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
     lsum = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
     for mb in micro:
         loss, _, g = one(mb)
@@ -64,6 +64,17 @@ def _loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, n_microbatches: 
         lsum = lsum + loss
     loss = lsum / n
     return loss, {"loss": loss, "ce_loss": loss}, {k: g / n for k, g in grads.items()}
+
+
+def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows i * B / n .. (i + 1) * B / n of ``x``.  A batch-sharded DTensor
+    is gathered first (DTensor cannot split a sharded dim into (n, B / n))
+    and the slice placed over ``act_batch`` again."""
+    if not isinstance(x, DTensor):
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    whole = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    part = whole.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    return constrain(part, "act_batch", *([None] * (x.ndim - 1)))
 
 
 def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
@@ -107,9 +118,7 @@ def make_prefill_step(model: Transformer) -> Callable:
 
     @torch.inference_mode()
     def prefill_step(batch: dict):
-        h, caches = model(batch, collect_cache=True)
-        logits = model.unembed(h[:, -1:])
-        return logits, {"pos": h.shape[1], "groups": caches}
+        return transformer.prefill(model.flat, model.cfg, batch, dtype=model.dtype)
 
     return prefill_step
 
@@ -122,3 +131,23 @@ def make_decode_step(model: Transformer) -> Callable:
         return model.decode_step(cache, tokens)
 
     return decode_step
+
+
+def make_serve_steps(cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16
+                     ) -> tuple[Callable, Callable]:
+    """The reference's functional serving steps: (params, batch) -> (logits,
+    cache) and (params, cache, tokens) -> (logits, cache), params a flat
+    dict in ``dtype``.  On a mesh (inside ``parallel.axes.mesh_context``
+    with ``SERVE_RULES``, or ``LONG_CONTEXT_RULES`` at batch 1) the params
+    are DTensors placed by ``params.shardings``, the batch is sharded over
+    ``act_batch`` and the cache is placed by ``transformer.cache_axes``."""
+
+    @torch.no_grad()
+    def prefill_step(params: dict, batch: dict):
+        return transformer.prefill(params, cfg, batch, dtype=dtype)
+
+    @torch.no_grad()
+    def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
+        return transformer.decode(params, cfg, cache, tokens, dtype=dtype)
+
+    return prefill_step, decode_step

@@ -19,13 +19,16 @@ losses are summed over the layers as the reference's scan carries them
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig
 from repro_torch.kernels import ops
@@ -42,9 +45,11 @@ from repro_torch.models.layers import (
     moe_ffn,
     rms_norm,
     self_attention,
+    SITES,
 )
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.axes import constrain, recompute_contexts
+from repro_torch.parallel.axes import (constrain, distribute_as, gather_fsdp,
+                                      plain_as_replicated, recompute_contexts)
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +157,9 @@ def apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor, *,
     (the last ``kv_cache_len`` positions) for attention, with the
     cross-attention's encoder keys and values {"xk", "xv"} when ``enc_out``
     is given; the final state for rwkv and rglru (written into ``state``
-    when it is given, zeros on entry)."""
+    when it is given, zeros on entry).  On a mesh the layer's weights are
+    gathered over the FSDP dims first (``gather_fsdp``)."""
+    p = gather_fsdp(p)
     if kind in RECURRENT:
         h, entry = RECURRENT[kind][0](p, h, cfg, state=state)
         return h, None, entry
@@ -175,6 +182,7 @@ def decode_apply_layer(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor,
     """One-token layer. Updates ``cache`` in place and returns (h, cache);
     an MoE FFN's aux is dropped, as the reference drops it.  A cache with
     encoder keys and values ("xk", "xv", read only) adds cross-attention."""
+    p = gather_fsdp(p)
     if kind in RECURRENT:
         return RECURRENT[kind][0](p, h, cfg, state=cache)
     a_out, cache["k"], cache["v"] = decode_self_attention(
@@ -199,19 +207,79 @@ def embed_tokens(params: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torc
 def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     h = constrain(h, "act_batch", "act_seq", None)
     if cfg.tie_embeddings:
-        return h @ params["embed"].to(h.dtype).T
-    return h @ params["lm_head"].to(h.dtype)
+        return h @ gather_fsdp(params["embed"].to(h.dtype)).T
+    return h @ gather_fsdp(params["lm_head"].to(h.dtype))
 
 
-def _remat(cfg: ArchConfig) -> bool:
-    """Whether to recompute each layer in the backward (only when grad is
-    on): the reference's ``"full"`` policy remats each scan body, here each
-    layer, through ``torch.utils.checkpoint``."""
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = torch.ops.aten.bmm.default
+# products the selective policies kept in the last ``loss_fn``'s forward:
+# (shape, dtype) of each, in order
+SAVED: list = []
+
+
+def _saved_shape(op, args) -> tuple:
+    a, b = (args[1], args[2]) if op is torch.ops.aten.addmm.default else (args[0], args[1])
+    return (*a.shape[:-1], b.shape[-1])
+
+
+def _keep(ctx, op, args) -> CheckpointPolicy:
+    if not ctx.is_recompute:
+        SAVED.append((_saved_shape(op, args), args[-1].dtype))
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots``, the reference's ``dots_with_no_batch_dims_saveable``: keep
+    every product without batch dims (mm, addmm, and the bmm over a batch
+    of 1 that a projection einsum lowers to), recompute the rest (the
+    kernels, attention's batched products, the MoE experts' bmm over E)."""
+    if op in _DOTS or (op is _BMM and args[0].shape[0] == 1):
+        return _keep(ctx, op, args)
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _attn_out_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``save_attn``, the reference's ``save_only_these_names("attn_out")``:
+    keep self-attention's output after ``wo`` (the product made inside
+    ``layers.attn_out_site``), recompute the rest."""
+    if SITES.attn_out and op in _DOTS:
+        return _keep(ctx, op, args)
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _both(outer, inner):
+    with outer, inner:
+        yield
+
+
+def _selective(policy):
+    """``context_fn`` of a selective policy: its caching and cached modes,
+    each inside ``recompute_contexts``'s mesh context."""
+    def context_fn():
+        keep, cached = create_selective_checkpoint_contexts(policy)
+        fwd, again = recompute_contexts()
+        return _both(fwd, keep), _both(again, cached)
+    return context_fn
+
+
+REMAT = {"full": recompute_contexts, "dots": _selective(_dots_policy),
+         "save_attn": _selective(_attn_out_policy)}
+
+
+def _remat(cfg: ArchConfig):
+    """The ``context_fn`` that recomputes each layer in the backward under
+    ``cfg.remat_policy`` (the reference remats each scan body, here each
+    layer, through ``torch.utils.checkpoint``), or None when grad is off or
+    the policy is ``"none"``.  ``"full"`` keeps only the layer's inputs;
+    ``"dots"`` and ``"save_attn"`` keep what their policies name."""
     if not torch.is_grad_enabled() or cfg.remat_policy == "none":
-        return False
-    if cfg.remat_policy == "full":
-        return True
-    raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not ported yet")
+        return None
+    if cfg.remat_policy not in REMAT:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of "
+                         f"{['none', *REMAT]}")
+    return REMAT[cfg.remat_policy]
 
 
 def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool = True,
@@ -226,9 +294,11 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
     straight into its slice of the stack."""
     caches = []
     aux = torch.zeros((len(AUX_KEYS),), dtype=torch.float32, device=h.device)
-    remat = not collect_cache and _remat(cfg)
+    remat = None if collect_cache else _remat(cfg)
+    on_mesh = isinstance(h, DTensor)
+    axes = cache_axes(cfg)["groups"] if collect_cache else None
     for g, (pattern, repeats) in enumerate(cfg.block_groups):
-        cache_g = {}
+        cache_g, entries = {}, {}
         layers = [_layers(params, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
         for r in range(repeats):
             # the residual stream at the boundary of the reference's scan body
@@ -238,7 +308,7 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                                           positions=positions, enc_out=enc_out)
                 if not collect_cache:
                     h, a, _ = (checkpoint(apply, layers[i][r], h, use_reentrant=False,
-                                          context_fn=recompute_contexts) if remat
+                                          context_fn=remat) if remat
                                else apply(layers[i][r], h))
                     if a is not None:
                         aux = aux + a
@@ -246,13 +316,17 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                 state = None
                 if kind in RECURRENT:
                     if r == 0:
-                        cache_g[f"p{i}"] = RECURRENT[kind][1](
-                            cfg, h.shape[0], h.device, stack=repeats)
+                        zero = RECURRENT[kind][1](cfg, h.shape[0], h.device, stack=repeats)
+                        cache_g[f"p{i}"] = {name: distribute_as(t, *axes[g][f"p{i}"][name])
+                                            for name, t in zero.items()}
                     state = {name: t[r] for name, t in cache_g[f"p{i}"].items()}
                 h, a, entry = apply(layers[i][r], h, state=state)
                 if a is not None:
                     aux = aux + a
                 if kind in RECURRENT:
+                    continue
+                if on_mesh:  # DTensor cannot write a slice of a plain stack: stacked below
+                    entries.setdefault(f"p{i}", []).append(entry)
                     continue
                 if r == 0:
                     cache_g[f"p{i}"] = {
@@ -260,6 +334,9 @@ def run_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, *, causal: bool =
                         for name, t in entry.items()}
                 for name, t in entry.items():
                     cache_g[f"p{i}"][name][r] = t
+        for key, ents in entries.items():
+            cache_g[key] = {name: constrain(torch.stack([e[name] for e in ents]),
+                                            *axes[g][key][name]) for name in ents[0]}
         caches.append(cache_g)
     return h, aux, (caches if collect_cache else None)
 
@@ -277,7 +354,7 @@ def run_encoder(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
     h = constrain(h, "act_batch", "act_seq", None)
     for p in _layers(params, "encoder/blocks/", cfg.n_enc_layers):
         h = constrain(h, "act_batch", "act_res_seq", None)
-        h, _, _ = (checkpoint(apply, p, h, use_reentrant=False, context_fn=recompute_contexts)
+        h, _, _ = (checkpoint(apply, p, h, use_reentrant=False, context_fn=remat)
                    if remat else apply(p, h))
     return rms_norm(h, params["encoder/ln_f"], cfg.norm_eps)
 
@@ -352,6 +429,7 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     balance + router z) / the attention layers' count, and the metrics
     carry the three aux means over them."""
     check_supported(cfg)
+    SAVED.clear()
     params = cast_params(params, dtype)
     tokens = batch["tokens"]
     labels = tokens[:, 1:]
@@ -369,6 +447,91 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
         metrics.update(moe_lb_loss=lb / n, moe_z_loss=zl / n, moe_dropped=dropped / n)
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Decode-cache template and its logical axes (the layout the prefill returns)
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, enc_len: int = 0, *,
+               dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cpu") -> dict:
+    """A zero decode cache for ``seq_len`` positions, as the reference's:
+    {"pos": int32 scalar, "groups": [{"p{i}": entry}]}, each tensor stacked
+    over its group's layers; an attention entry {"k", "v"} (B, L, KV, Dh)
+    in ``dtype`` (and {"xk", "xv"} over ``enc_len`` encoder frames, or
+    ``seq_len``, for an encoder-decoder), a recurrent one the f32 state.
+    Any device, ``meta`` too."""
+    check_supported(cfg)
+    kv = (cfg.n_kv_heads, cfg.d_head)
+    groups = []
+    for pattern, repeats in cfg.block_groups:
+        g = {}
+        for i, kind in enumerate(pattern):
+            if kind in RECURRENT:
+                g[f"p{i}"] = RECURRENT[kind][1](cfg, batch, device, stack=repeats)
+                continue
+            shapes = {"k": (batch, cfg.kv_cache_len(kind, seq_len)) + kv}
+            shapes["v"] = shapes["k"]
+            if cfg.enc_dec:
+                shapes["xk"] = shapes["xv"] = (batch, enc_len or seq_len) + kv
+            g[f"p{i}"] = {name: torch.zeros((repeats,) + shape, dtype=dtype, device=device)
+                          for name, shape in shapes.items()}
+        groups.append(g)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device), "groups": groups}
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of ``init_cache``'s tensors, tree for tree (the
+    reference's ``cache_axes``)."""
+    kv = ("layers", "cache_batch", "cache_seq", "act_kv_heads", None)
+    state_axes = {"rwkv": recurrent.rwkv_state_axes, "rglru": recurrent.rglru_state_axes}
+    groups = []
+    for pattern, _ in cfg.block_groups:
+        g = {}
+        for i, kind in enumerate(pattern):
+            if kind in state_axes:
+                g[f"p{i}"] = {k: ("layers",) + v for k, v in state_axes[kind](cfg).items()}
+            else:
+                g[f"p{i}"] = {"k": kv, "v": kv}
+                if cfg.enc_dec:
+                    g[f"p{i}"].update(xk=kv, xv=kv)
+        groups.append(g)
+    return {"pos": (), "groups": groups}
+
+
+def decode_groups(params: dict, cfg: ArchConfig, h: torch.Tensor, cache_groups: list,
+                  pos: int) -> torch.Tensor:
+    """One token through every layer, each layer's slice of ``cache_groups``
+    updated in place."""
+    for g, ((pattern, repeats), gcache) in enumerate(zip(cfg.block_groups, cache_groups)):
+        layers = [_layers(params, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
+        for r in range(repeats):
+            for i, kind in enumerate(pattern):
+                layer_cache = {name: t[r] for name, t in gcache[f"p{i}"].items()}
+                h, _ = decode_apply_layer(cfg, kind, layers[i][r], h, layer_cache, pos)
+    return h
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict, *, dtype: torch.dtype):
+    """batch as :func:`forward` takes it -> (next-token logits (B, 1, V),
+    cache {"pos": the joined length, "groups"}).  On a mesh (inside
+    ``mesh_context``, DTensor params and batch) the cache's tensors are
+    placed by :func:`cache_axes`."""
+    with plain_as_replicated():
+        h, _, caches = forward(params, cfg, batch, dtype=dtype, collect_cache=True)
+        return unembed(params, cfg, h[:, -1:]), {"pos": h.shape[1], "groups": caches}
+
+
+def decode(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor, *,
+           dtype: torch.dtype):
+    """One decode step. tokens (B, 1) -> (logits, cache); the cache's
+    tensors are updated in place.  ``cache["pos"]`` is an int or an integer
+    scalar tensor (``init_cache``'s)."""
+    pos = int(cache["pos"])
+    with plain_as_replicated():
+        h = embed_tokens(params, tokens, dtype)
+        h = decode_groups(params, cfg, h, cache["groups"], pos)
+        h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+        return unembed(params, cfg, h), {"pos": pos + 1, "groups": cache["groups"]}
 
 
 class Transformer(nn.Module):
@@ -401,17 +564,6 @@ class Transformer(nn.Module):
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         return unembed(self.flat, self.cfg, h)
 
-    def run_groups_decode(self, h: torch.Tensor, cache_groups: list, pos: int):
-        flat = self.flat
-        for g, ((pattern, repeats), gcache) in enumerate(
-                zip(self.cfg.block_groups, cache_groups)):
-            layers = [_layers(flat, f"groups/{g}/p{i}/", repeats) for i in range(len(pattern))]
-            for r in range(repeats):
-                for i, kind in enumerate(pattern):
-                    layer_cache = {name: t[r] for name, t in gcache[f"p{i}"].items()}
-                    h, _ = decode_apply_layer(self.cfg, kind, layers[i][r], h, layer_cache, pos)
-        return h, cache_groups
-
     def forward(self, batch: dict, *, collect_cache: bool = False):
         """batch as :func:`forward` takes it -> (final-normed h, caches|None);
         serving drops the MoE aux."""
@@ -420,10 +572,5 @@ class Transformer(nn.Module):
         return h, caches
 
     def decode_step(self, cache: dict, tokens: torch.Tensor):
-        """One decode step. tokens (B, 1). Returns (logits, cache); the
-        cache's tensors are updated in place."""
-        pos = cache["pos"]
-        h = self.embed_tokens(tokens)
-        h, groups = self.run_groups_decode(h, cache["groups"], pos)
-        h = rms_norm(h, self.get_parameter("ln_f"), self.cfg.norm_eps)
-        return self.unembed(h), {"pos": pos + 1, "groups": groups}
+        """:func:`decode` over the module's weights."""
+        return decode(self.flat, self.cfg, cache, tokens, dtype=self.dtype)

@@ -204,9 +204,12 @@ def spec_for(shape, axes, mesh: Any, rules: ShardingRules,
 
 def placements(spec: Spec, mesh: Any) -> tuple:
     """One placement per mesh dim: Shard(i) where tensor dim i's entry names
-    the mesh dim, else Replicate().  Raises for a tuple entry that is not in
-    mesh order, or a name the mesh does not have."""
-    names = list(mesh_shape(mesh))
+    the mesh dim, else Replicate() (also over a mesh dim of size 1, where
+    the two are the same layout and DTensor views only the latter freely).
+    Raises for a tuple entry that is not in mesh order, or a name the mesh
+    does not have."""
+    sizes = mesh_shape(mesh)
+    names = list(sizes)
     out: list = [Replicate()] * len(names)
     for i, entry in enumerate(spec):
         if entry is None:
@@ -221,7 +224,8 @@ def placements(spec: Spec, mesh: Any) -> tuple:
             raise ValueError(f"spec entry {entry!r} is not in mesh order {names}: DTensor "
                              f"splits a tensor dim over mesh dims in mesh order")
         for j in idx:
-            out[j] = Shard(i)
+            if sizes[names[j]] > 1:
+                out[j] = Shard(i)
     return tuple(out)
 
 
@@ -279,6 +283,29 @@ def constrain_view(x: torch.Tensor, shape: tuple, *logical_axes: Optional[str]) 
     return _Constrain.apply(x.view(shape), pl)
 
 
+def gather_fsdp(tree: Any) -> Any:
+    """Weights as a layer uses them: inside a mesh context each DTensor of
+    ``tree`` (a dict of weights, nested) gathered over the mesh dims that
+    shard the batch (``act_batch``'s: the FSDP dims), its tensor-parallel
+    shards kept, as XLA gathers an FSDP weight before its matmul; the
+    gradient comes back reduce-scattered to the weight's own layout.
+    Without it DTensor may shard a matmul's contraction instead and leave
+    its output a partial sum over the batch's dims (the whole logits of a
+    step all-reduced at a small batch).  Otherwise ``tree``."""
+    if _CTX.mesh is None or _CTX.rules is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v) for k, v in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    batch = _CTX.rules.rules.get("act_batch")
+    batch = {batch} if isinstance(batch, str) else set(batch or ())
+    names = tree.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if isinstance(p, Shard) and names[i] in batch else p
+               for i, p in enumerate(tree.placements))
+    return tree if pl == tuple(tree.placements) else tree.redistribute(tree.device_mesh, pl)
+
+
 def distribute_as(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """Inside a mesh context, a full tensor that every rank holds alike as
     a DTensor placed by the rules (each rank keeps its shard; nothing is
@@ -311,9 +338,27 @@ def recompute_contexts():
 
 def plain_as_replicated():
     """Inside a mesh context, plain tensors met beside DTensors count as
-    replicated (RoPE tables, masks, optimizer scalars); otherwise nothing."""
+    replicated (RoPE tables, masks, optimizer scalars); otherwise nothing.
+    Nests: leaving an inner one (a remat recompute's, inside the backward
+    of an outer one) keeps the outer one in force, where torch's
+    ``implicit_replication`` would turn it off."""
     if _CTX.mesh is None:
         return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
+    return _implicit_replication()
 
-    return implicit_replication()
+
+@contextlib.contextmanager
+def _implicit_replication():
+    dispatcher = DTensor._op_dispatcher
+    if not hasattr(dispatcher, "_allow_implicit_replication"):  # another torch
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            yield
+        return
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev

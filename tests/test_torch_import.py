@@ -22,6 +22,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) >= 14
+    for mod in ("hw", "roofline", "specs", "trace_analysis", "dryrun"):
+        assert f"repro_torch.launch.{mod}" in mods
+    assert "repro_torch.kernels.cost" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -249,10 +249,11 @@ MOE = MoESpec(n_experts=4, top_k=2, capacity_factor=1.25, group_size=64)
 
 @pytest.mark.parametrize("feature", ["unknown layer kind", "dots", "save_attn"])
 def test_unported_features_raise(cfg, feature):
-    """What the port still refuses: a layer kind it does not know (a config
-    that skipped ArchConfig's own check), when the model is built; the
-    remat policies "dots" and "save_attn", under grad (the model builds and
-    serves)."""
+    """What the port refuses: a layer kind it does not know (a config that
+    skipped ArchConfig's own check), when the model is built; a remat
+    policy it does not know, under grad.  The policies "dots" and
+    "save_attn" are ported: the model builds, and its loss under them
+    equals its loss under "full"."""
     if feature == "unknown layer kind":
         bad = cfg.replace()
         object.__setattr__(bad, "block_groups", ((("mamba",), 2),))
@@ -263,8 +264,12 @@ def test_unported_features_raise(cfg, feature):
     Transformer(bad, device="cpu")
     leaves = {k: v.requires_grad_() for k, v in pmod.materialize(model_defs(bad)).items()}
     tokens = torch.from_numpy(np.random.default_rng(0).integers(3, bad.vocab_size, (1, 9)))
-    with pytest.raises(NotImplementedError, match=feature):
-        loss_fn(leaves, bad, {"tokens": tokens}, dtype=torch.float32)
+    loss, _ = loss_fn(leaves, bad, {"tokens": tokens}, dtype=torch.float32)
+    full, _ = loss_fn(leaves, cfg, {"tokens": tokens}, dtype=torch.float32)
+    assert torch.equal(loss, full)
+    with pytest.raises(ValueError, match="remat_policy"):
+        loss_fn(leaves, cfg.replace(remat_policy=feature + "-unknown"), {"tokens": tokens},
+                dtype=torch.float32)
 
 
 @pytest.mark.parametrize("arch", list_archs())

@@ -276,7 +276,8 @@ def _loss_and_leaves(cfg, batch, dtype=torch.float32):
 
 def test_remat_leaves_loss_and_grads_unchanged():
     """remat_policy "full" (each layer recomputed in the backward) and
-    "none" give the same loss and gradients; unported policies raise."""
+    "none" give the same loss and gradients (the selective policies:
+    tests/test_torch_remat.py)."""
     cfg = smoke_config(get_arch("rsc-llm"))
     batch = _np_batch(cfg, b=2, s=16)
     out = {}
@@ -285,9 +286,6 @@ def test_remat_leaves_loss_and_grads_unchanged():
         out[policy] = [loss.detach()] + list(torch.autograd.grad(loss, list(masters.values())))
     for a, b in zip(out["full"], out["none"]):
         assert torch.equal(a, b)
-    for policy in ("dots", "save_attn"):
-        with pytest.raises(NotImplementedError, match=policy):
-            _loss_and_leaves(cfg.replace(remat_policy=policy), batch)
 
 
 def test_master_weights_train_and_serving_stays_frozen():
