@@ -15,6 +15,9 @@ AdamWState) tuple; bf16 stored as uint16 bit patterns) and
 ``manifest.json`` (dtypes, step, extra such as the data-pipeline step).
 Writes go to ``.tmp-`` then ``os.rename``, so a crash never leaves a
 half-valid checkpoint, and restore picks the newest complete step.
+
+torch is imported where a tensor is encoded or decoded: the cadence
+policies, which the simulator's replay workers evaluate, never load it.
 """
 from __future__ import annotations
 
@@ -28,10 +31,8 @@ from dataclasses import dataclass
 from typing import Any, Iterator, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.ettr_model import daly_young_interval_s
-from repro_torch.models.convert import numpy_from_tensor, tensor_from_numpy
 
 _BF16 = "bfloat16"
 
@@ -69,12 +70,20 @@ def _rebuild(template: Any, leaves: Iterator) -> Any:
     return next(leaves)
 
 
-def _encode(t: torch.Tensor) -> tuple[np.ndarray, str]:
+def _encode(t: "torch.Tensor") -> tuple[np.ndarray, str]:
+    import torch
+
+    from repro_torch.models.convert import numpy_from_tensor
+
     name = _BF16 if t.dtype == torch.bfloat16 else str(t.dtype).replace("torch.", "")
     return numpy_from_tensor(t), name
 
 
-def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+def _decode(a: np.ndarray, dtype_name: str) -> "torch.Tensor":
+    import torch
+
+    from repro_torch.models.convert import tensor_from_numpy
+
     return tensor_from_numpy(a) if dtype_name == _BF16 else torch.from_numpy(np.array(a))
 
 

@@ -29,6 +29,10 @@ reference; the TORCH tier runs float32, so the closed form agrees to
 numpy's ``default_rng(seed)`` per cell against Philox keyed by (seed,
 cell_index), ``cell_index`` the cell's (policy, scale) position, as the
 reference's ``fold_in``).
+
+torch and the kernel's wrapper are imported where the TORCH tier runs, as
+the reference imports jax: the NUMPY tier, which the simulator's replay
+workers score with, never loads torch.
 """
 from __future__ import annotations
 
@@ -41,9 +45,6 @@ from enum import Enum
 from typing import Optional
 
 import numpy as np
-import torch
-
-from repro_torch.kernels import stat_grid
 
 SECONDS_PER_DAY = 86400.0
 GPUS_PER_NODE = 8
@@ -121,15 +122,28 @@ def resolve_backend(backend: "StatBackend | str | None") -> StatBackend:
                     f"got {type(backend).__name__}")
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The TORCH tier's device: the card unless the caller names another;
     without a card it raises rather than running on the CPU."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the torch stat backend runs on the card; pass "
             "device='cpu' for its plain version")
     return dev
+
+
+def cli_backend(name: Optional[str], device) -> StatBackend:
+    """The backend of a grid CLI's ``--analytic-bands``: ``name`` (its
+    ``--stat-backend``), else ``REPRO_TORCH_STAT_BACKEND`` where that is
+    set, else TORCH, on the card. TORCH's device is resolved here, so a
+    run without a card stops before its replays, never falling back."""
+    backend = resolve_backend(name or os.environ.get(_ENV_VAR) or "torch")
+    if backend is StatBackend.TORCH:
+        resolve_device(device)
+    return backend
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +278,27 @@ class BandGridResult:
                 "mc_ettr", self.mc_ettr_mean[policy_idx, scale_idx])
         return out
 
+    def to_json(self) -> dict:
+        """The grid, the backend and every per-cell array as JSON values
+        (float64, so f32 results keep their bits); :func:`grid_from_json`
+        rebuilds the grid."""
+        g = self.grid
+        arrays = {k: None if getattr(self, k) is None
+                  else np.asarray(getattr(self, k), dtype=np.float64).tolist()
+                  for k in ("ettr", "n_failures", "mttf_hours", "dt_s",
+                            "mc_ettr_mean", "mc_ettr_std", "mc_n_failures")}
+        return {"backend": self.backend.name.lower(),
+                "n_compiled_calls": self.n_compiled_calls,
+                "wall_s": self.wall_s,
+                "grid": {"gpus": list(g.gpus), "seeds": list(g.seeds),
+                         "policies": [dict(vars(p)) for p in g.policies],
+                         "r_f": g.r_f_matrix().tolist(),
+                         "runtime_s": g.runtime_s,
+                         "gpus_per_node": g.gpus_per_node,
+                         "job_gpus": list(g.resolved_job_gpus()),
+                         "n_runs": g.n_runs},
+                **arrays}
+
     def table(self) -> str:
         """Per-(policy, scale) analytic band table (seed axis collapsed)."""
         hdr = (f"{'policy':20s} {'gpus':>7s} {'E[ETTR]':>8s} "
@@ -278,6 +313,16 @@ class BandGridResult:
                     f"[{e.lo:6.3f}, {e.hi:6.3f}] {f.mean:9.1f} "
                     f"{m.mean:9.1f}")
         return "\n".join(lines)
+
+
+def grid_from_json(d: dict) -> BandGrid:
+    """The :class:`BandGrid` of a :meth:`BandGridResult.to_json` dict."""
+    g = d["grid"]
+    return BandGrid(gpus=tuple(g["gpus"]), seeds=tuple(g["seeds"]),
+                    policies=tuple(PolicyCell(**p) for p in g["policies"]),
+                    r_f=np.asarray(g["r_f"], dtype=np.float64),
+                    runtime_s=g["runtime_s"], gpus_per_node=g["gpus_per_node"],
+                    job_gpus=tuple(g["job_gpus"]), n_runs=g["n_runs"])
 
 
 # ---------------------------------------------------------------------------
@@ -319,10 +364,14 @@ def _flat_cells(grid: BandGrid) -> dict[str, np.ndarray]:
 # the TORCH tier (float32; one stat_grid launch a grid on the card)
 # ---------------------------------------------------------------------------
 
-def _tensors(cols: dict, cluster_rate, runtime_s: float, dev) -> tuple[dict, torch.Tensor, dict]:
+def _tensors(cols: dict, cluster_rate, runtime_s: float, dev) -> tuple[dict, "torch.Tensor", dict]:
     """Flat f64 columns as ``kernels.stat_grid`` takes them on ``dev``: f32
     parameter columns and cluster rates, int32 key words, and its keyword
     arguments (runtime_s rounded to f32, and has_queue)."""
+    import torch
+
+    from repro_torch.kernels import stat_grid
+
     def f32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
 
@@ -336,7 +385,7 @@ def _tensors(cols: dict, cluster_rate, runtime_s: float, dev) -> tuple[dict, tor
     return tcols, f32(cluster_rate), kw
 
 
-def grid_columns(grid: BandGrid, device=None) -> tuple[dict, torch.Tensor, dict]:
+def grid_columns(grid: BandGrid, device=None) -> tuple[dict, "torch.Tensor", dict]:
     """``grid`` as the TORCH tier hands it to ``kernels.stat_grid``: its
     flat columns, its (scale, seed) cluster rates and the keyword arguments
     (add include_mc and n_runs for the Monte-Carlo)."""
@@ -350,6 +399,8 @@ def _grid_call(cols: dict, cluster_rate: np.ndarray, *, runtime_s: float,
     """Run ``kernels.stat_grid`` over flat f64 columns on ``device``;
     returns its outputs as f64 numpy arrays and the launches it took (1 on
     the card; on the CPU, one call of the plain version)."""
+    from repro_torch.kernels import stat_grid
+
     dev = resolve_device(device)
     tcols, rate, kw = _tensors(cols, cluster_rate, runtime_s, dev)
     before = stat_grid.launches
@@ -382,6 +433,10 @@ def torch_expected_n_failures(p, *, device=None) -> float:
 def torch_projected_mttf_hours(n_gpus, r_f, *, device=None) -> float:
     """TORCH impl behind mttf_model.projected_mttf_hours (plain PyTorch,
     float32)."""
+    import torch
+
+    from repro_torch.kernels import stat_grid
+
     dev = resolve_device(device)
     n_nodes = max(1, int(n_gpus) // GPUS_PER_NODE)
     rate = torch.tensor([n_nodes * r_f], dtype=torch.float32, device=dev)
@@ -427,6 +482,8 @@ def torch_fit_r_f(n_gpus, n_nodes, run_time_s, is_failure, *,
     """TORCH impl behind mttf_model.fit_r_f, on pre-extracted job columns
     (the record->column walk stays in Python either way): masked f32 sums
     in plain PyTorch."""
+    import torch
+
     dev = resolve_device(device)
     qualifies = torch.as_tensor(np.asarray(n_gpus) > min_gpus, device=dev)
     nodes = torch.as_tensor(np.asarray(n_nodes, dtype=np.float32), device=dev)
@@ -465,6 +522,8 @@ def batch_bands(grid: BandGrid, *, backend: "StatBackend | str | None"
     t0 = time.time()
 
     if backend is StatBackend.TORCH:
+        from repro_torch.kernels import stat_grid
+
         out, calls = _grid_call(
             cols, cluster_rate.reshape(-1), runtime_s=grid.runtime_s,
             include_mc=include_mc, n_runs=grid.n_runs, device=device)
