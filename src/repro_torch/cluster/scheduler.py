@@ -136,8 +136,7 @@ identical to an unrecorded one, and ``recorder=None`` costs one ``is not
 None`` check per hook site (zero-overhead-when-off; regression-tested in
 tests/test_trace.py, overhead-benchmarked in benchmarks/trace_bench.py).
 
-Observability hook points (the JAX package's ``repro.obs``, not ported
-yet; any object with these methods will do): an optional ``obs`` (a
+Observability hook points (repro_torch.obs): an optional ``obs`` (a
 ``MetricsRegistry``) rides the same pure-observer contract — ``bind`` /
 ``on_job_end`` (every job-attempt row) / ``on_fault`` (every fault row,
 independent or domain) / ``on_sched_pass`` (with the pass's measured
@@ -323,7 +322,7 @@ class ClusterSim:
         self.policy = policy
         # optional repro_torch.trace.TraceRecorder (duck-typed, same reasoning)
         self.recorder = recorder
-        # optional MetricsRegistry (duck-typed, same reasoning)
+        # optional repro_torch.obs.MetricsRegistry (duck-typed, same reasoning)
         self.obs = obs
         self.seed = seed
         self.horizon_s = horizon_days * 86400.0

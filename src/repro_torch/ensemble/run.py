@@ -287,16 +287,12 @@ def main(argv=None) -> int:
                          "launches of this run, as JSON to PATH")
     ap.add_argument("--json", default=None)
     ap.add_argument("--progress", action="store_true",
-                    help="stream per-cell heartbeat lines while the grid "
-                         "runs (needs repro_torch.obs, not ported yet)")
+                    help="stream per-cell heartbeat lines (completion, "
+                         "ETA, pool efficiency) while the grid runs")
     ap.add_argument("--heartbeat", default=None, metavar="PATH",
-                    help="also stream heartbeats as jsonl to PATH "
-                         "(needs repro_torch.obs, not ported yet)")
+                    help="also stream heartbeats as jsonl to PATH (view "
+                         "with python -m repro_torch.obs.report)")
     args = ap.parse_args(argv)
-    if args.progress or args.heartbeat:
-        raise NotImplementedError(
-            "--progress / --heartbeat need repro_torch.obs, which is not "
-            "ported yet (ROADMAP §1 item 20)")
     backend = None
     if args.analytic_bands:
         from repro_torch.core.backend import cli_backend
@@ -324,14 +320,42 @@ def main(argv=None) -> int:
     from repro_torch.ensemble.cellcache import open_cache
     cache = open_cache(args.cache, no_cache=args.no_cache)
 
+    on_result = None
+    hb = None
+    if args.progress or args.heartbeat:
+        from repro_torch.obs import Heartbeat
+
+        hb = Heartbeat(
+            total=len(gpus_list) * args.seeds * (1 + len(episodes)),
+            procs=args.procs,
+            print_fn=(lambda line: print(f"  {line}", flush=True))
+            if args.progress else None,
+            jsonl_path=args.heartbeat)
+
+        def on_result(i, stats, done, total, cached=False):
+            ep = f"/{stats.episode}" if stats.episode else ""
+            phase = None
+            if cached:
+                phase = "cached"
+            elif stats.fork:
+                phase = ("prefix" if stats.fork.get("carries_probe")
+                         else "suffix")
+            hb.on_cell(f"{stats.n_gpus}gpu/seed{stats.seed}{ep}",
+                       0.0 if cached else stats.wall_s, phase=phase,
+                       cached=cached if cache is not None else None)
+
     t0 = time.time()
     aggs = run_ensemble_grid(gpus_list, seeds, horizon_days=args.days,
                              r_f=args.r_f, min_hours=args.min_hours,
-                             procs=args.procs, scenario=args.scenario,
-                             episodes=episodes, fork=not args.no_fork,
-                             cache=cache)
+                             procs=args.procs, on_result=on_result,
+                             scenario=args.scenario, episodes=episodes,
+                             fork=not args.no_fork, cache=cache)
     agg = aggs[""]
     wall = time.time() - t0
+    if hb is not None:
+        hb.close()
+        if args.heartbeat:
+            print(f"heartbeats streamed to {args.heartbeat}")
 
     print()
     print(agg.band_table())

@@ -499,16 +499,12 @@ def main(argv=None) -> None:
                     help="archive each cell's trace as npz under DIR "
                          "(re-analyzable with python -m repro_torch.trace.report)")
     ap.add_argument("--progress", action="store_true",
-                    help="stream per-cell heartbeat lines while the grid "
-                         "runs (needs repro_torch.obs, not ported yet)")
+                    help="stream per-cell heartbeat lines (completion, "
+                         "ETA, pool efficiency) while the grid runs")
     ap.add_argument("--heartbeat", default=None, metavar="PATH",
-                    help="also stream heartbeats as jsonl to PATH "
-                         "(needs repro_torch.obs, not ported yet)")
+                    help="also stream heartbeats as jsonl to PATH (view "
+                         "with python -m repro_torch.obs.report)")
     args = ap.parse_args(argv)
-    if args.progress or args.heartbeat:
-        raise NotImplementedError(
-            "--progress / --heartbeat need repro_torch.obs, which is not "
-            "ported yet (ROADMAP §1 item 20)")
     if args.scenario is not None:
         from repro_torch.configs.scenarios import get_scenario
         try:
@@ -538,12 +534,49 @@ def main(argv=None) -> None:
     if cache is not None and args.save_traces:
         print(f"cell cache {cache.root} ignored: --save-traces needs "
               f"real replays")
+    on_result = None
+    hb = None
+    if args.progress or args.heartbeat:
+        from repro_torch.obs import Heartbeat
+
+        # under the fork plan each (scale, seed) group yields exactly one
+        # probe-carrying "prefix" cell; the rest are near-free "suffix"
+        # cells — declaring the split keeps the ETA steady when the
+        # cheap suffixes land first
+        n_groups = len(gpus_list) * args.seeds
+        phase_totals = ({"prefix": n_groups,
+                         "suffix": n_groups * (len(policies) - 1)}
+                        if fork and len(policies) > 1 else None)
+        hb = Heartbeat(
+            total=len(policies) * len(gpus_list) * args.seeds,
+            procs=args.procs,
+            print_fn=(lambda line: print(f"  {line}", flush=True))
+            if args.progress else None,
+            jsonl_path=args.heartbeat,
+            phase_totals=phase_totals)
+
+        def on_result(i, cell):
+            cached = cell.extra.get("cache_hit", False)
+            fk = cell.extra.get("fork")
+            phase = None
+            if cached:
+                phase = "cached"
+            elif fk is not None:
+                phase = "prefix" if fk.get("carries_probe") else "suffix"
+            hb.on_cell(f"{cell.policy}/{cell.n_gpus}gpu/s{cell.seed}",
+                       0.0 if cached else cell.wall_s, phase=phase,
+                       cached=cached if cache is not None else None)
+
     res = sweep(policies=policies, gpus_list=gpus_list,
                 seeds=range(args.seeds), horizon_days=args.days,
                 min_hours=args.min_hours, procs=args.procs,
                 trace_dir=args.save_traces, scenario=args.scenario,
                 fork=fork, snap_period_days=args.snap_period_days,
-                cache=cache)
+                cache=cache, on_result=on_result)
+    if hb is not None:
+        hb.close()
+        if args.heartbeat:
+            print(f"heartbeats streamed to {args.heartbeat}")
     print(res.table())
     if args.save_traces:
         print(f"per-cell traces saved under {args.save_traces}/")

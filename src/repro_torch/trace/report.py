@@ -215,18 +215,16 @@ def main(argv=None) -> None:
                     help="dump the metric table as JSON")
     ap.add_argument("--obs-out", default=None,
                     help="--simulate: stream live MetricsRegistry "
-                         "snapshots to this jsonl (needs repro_torch.obs, "
-                         "not ported yet)")
+                         "snapshots to this jsonl (view with "
+                         "python -m repro_torch.obs.report)")
     ap.add_argument("--obs-interval", type=float, default=6.0,
                     help="snapshot cadence in simulated hours")
     ap.add_argument("--prom-out", default=None,
                     help="--simulate: write the final metric state in "
-                         "Prometheus text-exposition format (needs "
-                         "repro_torch.obs, not ported yet)")
+                         "Prometheus text-exposition format")
     ap.add_argument("--self-profile", action="store_true",
                     help="--simulate: print the engine phase-timer "
-                         "breakdown after the run (needs repro_torch.obs, "
-                         "not ported yet)")
+                         "breakdown after the run")
     args = ap.parse_args(argv)
 
     if args.simulate and args.trace:
@@ -237,10 +235,6 @@ def main(argv=None) -> None:
                               or args.self_profile):
         ap.error("--obs-out/--prom-out/--self-profile instrument a live "
                  "run: they only apply to --simulate")
-    if args.obs_out or args.prom_out or args.self_profile:
-        raise NotImplementedError(
-            "--obs-out / --prom-out / --self-profile need repro_torch.obs, "
-            "which is not ported yet (ROADMAP §1 item 20)")
     if args.save and not args.save.endswith((".npz", ".jsonl")):
         ap.error(f"--save {args.save!r}: use a .npz or .jsonl suffix "
                  "(checked up front so a long run is not wasted)")
@@ -257,8 +251,36 @@ def main(argv=None) -> None:
         spec = ClusterSpec("RSC-1", n_nodes=args.nodes,
                            jobs_per_day=args.nodes * 3.6,
                            target_utilization=0.83, r_f=6.5e-3)
+        obs = writer = profiler = None
+        setup = None
+        if args.obs_out or args.prom_out:
+            from repro_torch.obs import JsonlWriter, MetricsRegistry
+            obs = MetricsRegistry(
+                snapshot_interval_s=args.obs_interval * 3600.0)
+            if args.obs_out:
+                writer = JsonlWriter(args.obs_out)
+                obs.attach_emitter(writer)
+        if args.self_profile:
+            from repro_torch.obs import EngineProfiler
+            profiler = EngineProfiler()
+            setup = profiler.attach
+        sim_kw = {} if obs is None else {"obs": obs}
         _, trace = simulate_trace(spec, horizon_days=args.days,
-                                  seed=args.seed, scenario=args.scenario)
+                                  seed=args.seed, scenario=args.scenario,
+                                  setup=setup, **sim_kw)
+        if obs is not None:
+            obs.finalize()
+        if writer is not None:
+            writer.close()
+            print(f"{writer.n_written} obs snapshots streamed to "
+                  f"{args.obs_out}")
+        if args.prom_out:
+            from repro_torch.obs import to_prometheus
+            with open(args.prom_out, "w") as f:
+                f.write(to_prometheus(obs))
+            print(f"Prometheus exposition written to {args.prom_out}")
+        if profiler is not None:
+            print(profiler.render())
     elif args.trace:
         trace = load_any(args.trace, args.format)
     else:

@@ -5,7 +5,9 @@ answers from it; a directory shared with the reference never answers
 across packages), and the batched analytic bands, whose torch tier
 (``stat_grid``'s plain version with ``device="cpu"``) holds the closed
 form within 5e-4 of numpy and gives ``oracle_bracket`` the same verdicts.
-Without a card, ``--analytic-bands`` stops with "no CUDA device".
+Without a card, ``--analytic-bands`` stops with "no CUDA device". With
+``--progress`` / ``--heartbeat`` the CLI's beats are the reference's less
+their wall-clock fields, and neither it nor its workers import torch.
 """
 import json
 import os
@@ -22,7 +24,8 @@ from repro_torch.core import backend as tbk
 from repro_torch.ensemble import run as t_run
 from repro_torch.ensemble.aggregate import EnsembleAggregator
 from repro_torch.ensemble.runner import CellStats
-from tests.test_torch_mitigations import same, timeless
+from repro_torch.obs import read_jsonl
+from tests.test_torch_mitigations import obs_flag_runs, same, timeless
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 NO_CUDA = {"CUDA_VISIBLE_DEVICES": ""}
@@ -133,10 +136,19 @@ def test_ensemble_cli_never_hides_the_card(tmp_path):
     assert grid.shape == (1, 1, 1) and grid.gpus == (256,)
 
 
-@pytest.mark.parametrize("flag", [["--progress"], ["--heartbeat", "hb.jsonl"]])
-def test_ensemble_obs_flags_are_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_run.main(["--gpus", "256", "--seeds", "1", "--days", "0.1", *flag])
+@pytest.mark.parametrize("mode", ["progress", "heartbeat", "cache"])
+def test_ensemble_obs_flags_equal_reference(tmp_path, mode):
+    """--progress / --heartbeat on the port's ensemble give the reference's
+    beats: cell labels (episodes included), done / total and phases
+    ("prefix" replays, "suffix" episode forks, "cached" from a warm cell
+    cache). Only the walls differ."""
+    args = ["--gpus", "256,512", "--seeds", "2", "--days", "2", "--min-hours", "4",
+            "--episodes", "rf:2@1"]
+    got = obs_flag_runs(cli, tmp_path, args, mode)["repro_torch"]
+    assert len(got) == 8
+    if mode == "progress":
+        assert got[:2] == [("1", "8", "256gpu/seed0", "[prefix]"),
+                           ("2", "8", "256gpu/seed0/rf:2@1", "[suffix]")]
 
 
 def test_replay_workers_never_import_torch():
@@ -159,3 +171,32 @@ def test_replay_workers_never_import_torch():
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("pkg_cli", ["ensemble.run", "mitigations.sweep"])
+def test_grid_clis_with_progress_never_import_torch(tmp_path, pkg_cli):
+    """With --progress and --heartbeat on, neither a grid CLI nor its
+    spawned workers (which inherit PYTHONPATH) import torch: a stand-in
+    ``torch`` first on the path records any import and fails it."""
+    fake = tmp_path / "poison" / "torch"
+    fake.mkdir(parents=True)
+    mark = tmp_path / "torch-imported"
+    (fake / "__init__.py").write_text(
+        "import os\n"
+        "with open(os.environ['TORCH_IMPORT_MARK'], 'a') as f:\n"
+        "    f.write(f'{os.getpid()}\\n')\n"
+        "raise ImportError('torch imported by a replay process')\n")
+    args = {"ensemble.run": ["--gpus", "256,512", "--seeds", "2", "--days", "2",
+                             "--min-hours", "4"],
+            "mitigations.sweep": ["--policies", "baseline,checkpoint_adaptive",
+                                  "--gpus", "256,512", "--seeds", "1", "--days", "2",
+                                  "--min-hours", "2"]}[pkg_cli]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(fake.parent),
+                                                       os.path.join(ROOT, "src")]),
+               TORCH_IMPORT_MARK=str(mark), **NO_CUDA)
+    r = subprocess.run([sys.executable, "-m", f"repro_torch.{pkg_cli}", *args, "--procs", "2",
+                        "--progress", "--heartbeat", str(tmp_path / "hb.jsonl")],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert not mark.exists(), mark.read_text()
+    assert "eta" in r.stdout and len(read_jsonl(str(tmp_path / "hb.jsonl"))) == 4

@@ -25,6 +25,9 @@ def test_every_module_imports_without_jax_or_repro():
     for mod in ("hw", "roofline", "specs", "trace_analysis", "dryrun"):
         assert f"repro_torch.launch.{mod}" in mods
     assert "repro_torch.kernels.cost" in mods
+    for mod in ("obs", "obs.metrics", "obs.emit", "obs.profiler", "obs.report",
+                "fabric.topology", "fabric.routing", "fabric.simulate"):
+        assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -32,6 +35,20 @@ def test_every_module_imports_without_jax_or_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(json.dumps(bad))\n")
+    r = run_subprocess_py(code, env_extra=NO_CUDA)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_obs_and_fabric_leave_torch_unloaded():
+    """The telemetry and the fabric model are host code: importing them
+    (and the report CLI) loads neither torch nor jax nor the reference."""
+    code = (
+        "import json, sys\n"
+        "import repro_torch.obs, repro_torch.obs.report\n"
+        "import repro_torch.fabric.simulate\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                        in ('torch', 'jax', 'repro'))))\n")
     r = run_subprocess_py(code, env_extra=NO_CUDA)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []

@@ -3,10 +3,13 @@ package's on the CPU: the policy registry, the sweep's per-cell rows
 (forked and cold), the CLI's ``--json``, and the batched what-if table,
 whose numpy tier equals the reference's to the bit and whose torch tier
 (``stat_grid``'s plain version with ``device="cpu"``) is within 5e-4.
-Without a card, ``--analytic-bands`` stops with "no CUDA device".
+Without a card, ``--analytic-bands`` stops with "no CUDA device". With
+``--progress`` / ``--heartbeat`` the CLI's beats are the reference's less
+their wall-clock fields.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -18,6 +21,7 @@ from repro.mitigations import sweep as r_sweep
 from repro_torch.core import backend as tbk
 from repro_torch.mitigations import policy as t_policy
 from repro_torch.mitigations import sweep as t_sweep
+from repro_torch.obs import read_jsonl
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 POLICIES = ("baseline", "lemon_eviction", "checkpoint_optimal", "health_gate")
@@ -38,6 +42,57 @@ def timeless(o):
 def same(a, b) -> bool:
     """JSON-level equality with NaN equal to NaN."""
     return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+# a --progress line: "[  3/8] 256gpu/seed1   [prefix]   0.01s  eta ..."
+PROGRESS = re.compile(r"^\s+\[\s*(\d+)/(\d+)\] (\S+)\s+(\[\w+\])?")
+BEAT_KEYS = ("kind", "done", "total", "label", "procs", "phase", "cache_hits", "cache_misses")
+
+
+def progress_of(stdout):
+    """The --progress lines' done, total, cell label and phase (the rest
+    of a line is read off the host's clock)."""
+    return [m.groups() for m in map(PROGRESS.match, stdout.splitlines()) if m]
+
+
+def beats_of(path):
+    """A --heartbeat stream less its wall-clock fields."""
+    return [{k: b[k] for k in BEAT_KEYS if k in b} for b in read_jsonl(path)]
+
+
+def obs_flag_runs(cli, tmp_path, args, mode):
+    """The reference's and the port's CLI with one obs flag: ``progress``
+    (serial), ``heartbeat`` (a spawn pool of 2) or ``cache`` (a heartbeat
+    stream from a warm cell cache). Returns {package: what the flag gave},
+    progress lines or beats; a pool's beats come sorted by label, since
+    its cells land in any order."""
+    out = {}
+    for pkg in ("repro", "repro_torch"):
+        hb = str(tmp_path / f"{pkg}.jsonl")
+        run = args + {"progress": ["--procs", "0", "--progress"],
+                      "heartbeat": ["--procs", "2", "--heartbeat", hb],
+                      "cache": ["--procs", "0", "--heartbeat", hb,
+                                "--cache", str(tmp_path / f"cache-{pkg}")]}[mode]
+        for _ in range(2 if mode == "cache" else 1):   # the first fills the cache
+            r = cli(pkg, run)
+            assert r.returncode == 0, r.stdout + r.stderr
+        if mode == "progress":
+            out[pkg] = progress_of(r.stdout)
+            assert "eta" in r.stdout
+            continue
+        assert f"heartbeats streamed to {hb}" in r.stdout
+        beats = beats_of(hb)
+        assert [b["done"] for b in beats] == list(range(1, len(beats) + 1))
+        assert beats[-1]["total"] == len(beats)
+        if mode == "heartbeat":
+            beats = sorted(({k: v for k, v in b.items() if k != "done"} for b in beats),
+                           key=lambda b: b["label"])
+        else:
+            assert {b["phase"] for b in beats} == {"cached"}
+            assert beats[-1]["cache_hits"] == len(beats) and beats[-1]["cache_misses"] == 0
+        out[pkg] = beats
+    assert out["repro_torch"] and out["repro_torch"] == out["repro"]
+    return out
 
 
 def cli(pkg, args, env_extra=None, timeout=300):
@@ -122,7 +177,15 @@ def test_sweep_cli_never_hides_the_card(tmp_path):
     assert "TORCH" in r.stdout and "1 cells in" in r.stdout
 
 
-@pytest.mark.parametrize("flag", [["--progress"], ["--heartbeat", "hb.jsonl"]])
-def test_sweep_obs_flags_are_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_sweep.main(["--gpus", "256", "--seeds", "1", "--days", "0.1", *flag])
+@pytest.mark.parametrize("mode", ["progress", "heartbeat", "cache"])
+def test_sweep_obs_flags_equal_reference(tmp_path, mode):
+    """--progress / --heartbeat on the port's sweep give the reference's
+    beats: cell labels, done / total and phases (one probe-carrying
+    "prefix" cell a (scale, seed) group and "suffix" cells under the fork
+    plan; "cached" from a warm cell cache). Only the walls differ."""
+    args = ["--policies", "baseline,lemon_eviction,checkpoint_optimal", "--gpus", "256,512",
+            "--seeds", "1", "--days", "2", "--min-hours", "4"]
+    got = obs_flag_runs(cli, tmp_path, args, mode)["repro_torch"]
+    assert len(got) == 6
+    if mode == "progress":
+        assert [g[3] for g in got] == ["[prefix]", "[suffix]", "[suffix]"] * 2

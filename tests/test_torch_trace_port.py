@@ -2,7 +2,9 @@
 written by either package load in the other unchanged (npz, jsonl and the
 chunked spill directory), the Philly CSV ingests to equal tables, and the
 §III report (``trace.report``) gives equal JSON on a saved trace and on
-a simulated run under a scenario pack.
+a simulated run under a scenario pack, and its telemetry flags
+(``--obs-out``, ``--prom-out``, ``--self-profile``) the reference's
+streams less their wall-clock fields.
 """
 import json
 import os
@@ -113,9 +115,54 @@ def test_report_cli_simulated_scenario_equal(tmp_path):
     assert json.loads((tmp_path / "t2.json").read_text()) == want
 
 
-def test_report_obs_flags_are_not_ported():
-    from repro_torch.trace import report
+def profile_rows(stdout):
+    """The --self-profile table's (phase, calls) rows; the rest of a row
+    is read off the host's clock."""
+    lines = stdout.splitlines()
+    start = lines.index("engine self-profile (inclusive timers; alloc nests "
+                        "inside sched_pass)") + 2
+    rows = []
+    for line in lines[start:]:
+        if not line.startswith("  "):
+            break
+        rows.append(tuple(line.split()[:2]))
+    return rows, lines[:start - 2] + lines[start + len(rows):]
 
-    for flag in (["--obs-out", "x.jsonl"], ["--prom-out", "x.prom"], ["--self-profile"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            report.main(["--simulate", "--nodes", "8", "--days", "0.1", *flag])
+
+@pytest.mark.parametrize("extra", [[], ["--scenario", "lablup-504", "--obs-interval", "2"]],
+                         ids=["default", "lablup-504"])
+def test_report_obs_flags_equal_reference(tmp_path, extra):
+    """--obs-out / --prom-out / --self-profile on the port's report give the
+    reference's snapshot stream and Prometheus text less their wall-clock
+    fields, the same profile phases and call counts, and the same report."""
+    from repro.obs import read_jsonl as r_read_jsonl
+    from repro_torch.obs import read_jsonl
+    from tests.test_torch_obs import timeless, timeless_prom
+
+    args = ["--simulate", "--nodes", "60", "--days", "3", "--seed", "1", "--self-profile",
+            *extra]
+    out = {}
+    for pkg in ("repro", "repro_torch"):
+        obs, prom = tmp_path / f"{pkg}.jsonl", tmp_path / f"{pkg}.prom"
+        r = report_cli(pkg, args + ["--obs-out", str(obs), "--prom-out", str(prom)])
+        rows, rest = profile_rows(r.stdout.replace(str(tmp_path / pkg), "OUT"))
+        out[pkg] = ([timeless(s) for s in r_read_jsonl(str(obs))],
+                    timeless_prom(prom.read_text()), rows, rest)
+    got, want = out["repro_torch"], out["repro"]
+    assert got[0] == want[0] and len(got[0]) >= 8
+    assert [timeless(s) for s in read_jsonl(str(tmp_path / "repro.jsonl"))] == want[0]
+    assert got[1] == want[1] and "# TYPE repro_jobs_total counter" in got[1]
+    assert got[2] == want[2]
+    assert [r[0] for r in got[2]] == ["sched_pass", "fault", "alloc", "record", "release",
+                                      "total_run", "other"]
+    assert got[3] == want[3] and "Prometheus exposition written to OUT.prom" in got[3]
+
+
+def test_report_obs_flags_need_simulate(tmp_path):
+    """Without --simulate the obs flags are refused up front, in both."""
+    for pkg in ("repro", "repro_torch"):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        r = subprocess.run([sys.executable, "-m", f"{pkg}.trace.report", "--obs-out",
+                            str(tmp_path / "x.jsonl")], env=env, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode != 0 and "only apply to --simulate" in r.stderr
