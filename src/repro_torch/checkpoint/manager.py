@@ -25,8 +25,12 @@ import json
 import os
 import pathlib
 import shutil
+import struct
 import threading
 import time
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Iterator, Optional
 
@@ -70,13 +74,18 @@ def _rebuild(template: Any, leaves: Iterator) -> Any:
     return next(leaves)
 
 
-def _encode(t: "torch.Tensor") -> tuple[np.ndarray, str]:
+def _encode(t: "torch.Tensor", copy: bool = False) -> tuple[np.ndarray, str]:
+    """The leaf's host array and dtype name.  ``copy=True`` gives a CPU
+    tensor an array of its own: otherwise the array is a view of the
+    tensor's storage, which an in-place update (the trainer's donated
+    AdamW step) overwrites while an async write is still reading it."""
     import torch
 
     from repro_torch.models.convert import numpy_from_tensor
 
     name = _BF16 if t.dtype == torch.bfloat16 else str(t.dtype).replace("torch.", "")
-    return numpy_from_tensor(t), name
+    a = numpy_from_tensor(t)
+    return (a.copy() if copy and t.device.type == "cpu" else a), name
 
 
 def _decode(a: np.ndarray, dtype_name: str) -> "torch.Tensor":
@@ -84,7 +93,48 @@ def _decode(a: np.ndarray, dtype_name: str) -> "torch.Tensor":
 
     from repro_torch.models.convert import tensor_from_numpy
 
-    return tensor_from_numpy(a) if dtype_name == _BF16 else torch.from_numpy(np.array(a))
+    return tensor_from_numpy(a) if dtype_name == _BF16 else torch.from_numpy(a)
+
+
+def _read_npz(path: pathlib.Path, keys: list) -> dict[str, np.ndarray]:
+    """The arrays ``keys`` of the npz at ``path`` (``np.savez``'s, members
+    stored), as ``np.load`` gives them: each member read into its own array
+    in one read (``np.load`` reads a zip member 256 KiB at a time, at a
+    fraction of the disk's rate) and its CRC-32 checked as ``zipfile``
+    checks it, the sums on a thread pool."""
+    out: dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f, ThreadPoolExecutor(8) as pool:
+        sums = []
+        for key in keys:
+            info = zf.getinfo(key + ".npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise zipfile.BadZipFile(f"{path}: {info.filename} is compressed; "
+                                         f"a checkpoint's members are stored")
+            f.seek(info.header_offset)
+            local = f.read(30)  # the local header; its name and extra field follow
+            start = info.header_offset + 30 + sum(struct.unpack("<HH", local[26:30]))
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f) if version == (1, 0)
+                                     else np.lib.format.read_array_header_2_0(f))
+            head = f.tell() - start
+            f.seek(start)
+            header = f.read(head)
+            a = np.empty(shape, dtype, order="F" if fortran else "C")
+            view = memoryview(a.reshape(-1, order="A")).cast("B")
+            got = 0
+            while got < len(view):
+                n = f.readinto(view[got:])
+                if not n:
+                    raise zipfile.BadZipFile(f"{path}: {info.filename} is cut short")
+                got += n
+            sums.append((info, pool.submit(lambda h, v: zlib.crc32(v, zlib.crc32(h)),
+                                           header, view)))
+            out[key] = a
+        for info, crc in sums:
+            if crc.result() != info.CRC:
+                raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r} in {path}")
+    return out
 
 
 @dataclass
@@ -110,7 +160,8 @@ class CheckpointManager:
         """Returns the time the step loop was blocked (the paper's w_cp in
         sync mode; only the copy to the host in async mode)."""
         t0 = time.time()
-        host = {k: _encode(v) for k, v in _flatten(tree).items()}  # the blocking part
+        # the blocking part: an async write reads its own snapshot of each leaf
+        host = {k: _encode(v, copy=self.async_mode) for k, v in _flatten(tree).items()}
         snapshot_s = time.time() - t0
         if self.async_mode:
             self.wait()  # one write in flight at a time
@@ -183,14 +234,15 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self.dir / f"step_{step:09d}"
         manifest = json.loads((d / "manifest.json").read_text())
+        paths = list(_paths(template))
+        data = _read_npz(d / "arrays.npz", [key for key, _ in paths])
         leaves = []
-        with np.load(d / "arrays.npz") as data:
-            for key, leaf in _paths(template):
-                arr = _decode(data[key], manifest["dtypes"][key])
-                if tuple(arr.shape) != tuple(leaf.shape):
-                    raise ValueError(f"shape mismatch for {key}: "
-                                     f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
-                leaves.append(arr)
+        for key, leaf in paths:
+            arr = _decode(data.pop(key), manifest["dtypes"][key])
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
+            leaves.append(arr)
         return manifest["step"], _rebuild(template, iter(leaves)), manifest.get("extra", {})
 
 

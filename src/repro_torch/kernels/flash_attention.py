@@ -59,6 +59,9 @@ cross_launches = 0  # those forward launches at Sq != Sk (cross-attention)
 offset_launches = {"fwd": 0, "fwd_lse": 0, "bwd": 0}
 lse_launches = 0  # forward that also writes the LSE (training)
 bwd_launches = 0  # backward
+# the LSE forward's and the backward's launches by ("fwd_lse" or "bwd",
+# causal, window, chunk, Sq != Sk)
+train_mask_launches: dict = {}
 BWD_DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-core f32"}
 # the bf16 backward's tiles: a consumer warpgroup owns 64 rows, a block two
 # up to D 128 (one at D 256); a dK / dV item is 128 keys stepping over 64 q
@@ -301,6 +304,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       softcap=softcap, q_offset=q_offset, with_lse=True)
     lse_launches += 1
     offset_launches["fwd_lse"] += q_offset != 0
+    _count_train("fwd_lse", q, k, causal, window, chunk)
     return o, lse
 
 
@@ -361,7 +365,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     _build.check(lib, err, "flash_attention_bwd launch")
     bwd_launches += 1
     offset_launches["bwd"] += q_offset != 0
+    _count_train("bwd", q, k, causal, window, chunk)
     return dq, dk, dv
+
+
+def _count_train(wrapper: str, q, k, causal, window, chunk) -> None:
+    key = (wrapper, bool(causal), window, chunk, q.shape[1] != k.shape[1])
+    train_mask_launches[key] = train_mask_launches.get(key, 0) + 1
 
 
 class FlashAttention(torch.autograd.Function):

@@ -116,7 +116,9 @@ def _local(tree) -> list:
 def step_fn(cfg, shape: ShapeSpec, n_micro: int):
     """The cell's step over ``input_specs``' arguments."""
     if shape.kind == "train":
-        return steps.make_train_step(cfg, adamw.AdamWConfig(), n_microbatches=n_micro)
+        # params and moments donated, as the reference's jit donates them
+        return steps.make_train_step(cfg, adamw.AdamWConfig(), n_microbatches=n_micro,
+                                     donate=True)
     prefill, decode = steps.make_serve_steps(cfg)
     if shape.kind == "prefill":
         return prefill

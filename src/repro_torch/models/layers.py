@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig, MoESpec
 from repro_torch.kernels import ops
@@ -286,6 +286,19 @@ def _capacity(spec: MoESpec, group: int) -> int:
     return max(4, math.ceil(c / 4) * 4)
 
 
+def top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k experts by probability, highest first: a stable
+    descending sort puts equal probabilities in expert order, as
+    ``lax.top_k`` does."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+# moe_ffn's calls on a mesh, by route: "per_rank" where each rank routes
+# its own groups, "whole_batch" where a group would straddle a batch shard
+# (every rank then routes the whole batch)
+routes = {"per_rank": 0, "whole_batch": 0}
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """Routed expert FFN, the reference's function.  Returns (output, aux).
 
@@ -304,10 +317,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     a scatter, so the result does not depend on the order of the card's
     threads.
 
-    On a mesh (a DTensor ``x``) the routing, the gather and the combine run
-    on every rank alike over the whole batch (DTensor places no sort or
-    integer scatter): x and the router are gathered, and the experts' batched
-    matmuls run on their sharded weights as DTensor ops.
+    On a mesh (a DTensor ``x``) the groups inherit the token sharding, as
+    the reference's do: where each batch shard holds whole groups, each
+    rank routes, gathers and combines its own tokens' groups (local tensors:
+    DTensor places no sort or integer scatter), the expert buffer is placed
+    as the batch shards' groups, the experts' batched matmuls run on their
+    sharded weights as DTensor ops, and the aux means are averaged over the
+    batch shards.  The groups are the whole-batch ones in the same order, so
+    the output is the same.  Where a group would straddle a shard (a small
+    B*S, decode) every rank routes the whole batch instead (``routes``
+    counts the two).
     """
     spec = cfg.moe
     assert spec is not None
@@ -324,19 +343,35 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     # dispatch and combine constraints have no tensor here to stand on)
     x = constrain(x, "act_batch", "act_seq", None)
     mesh = x.device_mesh if isinstance(x, DTensor) else None
-    rep = [Replicate()] * mesh.ndim if mesh is not None else None
+    n = 1  # batch shards, each routing its own groups
+    rep = own = rows = summed = None
+    if mesh is not None:
+        rep = (Replicate(),) * mesh.ndim
+        n = math.prod(mesh.size(i) for i, pl in enumerate(x.placements) if isinstance(pl, Shard))
+        if (T // n) % G:
+            n = 1
+        routes["per_rank" if n > 1 else "whole_batch"] += 1
+        own = tuple(x.placements) if n > 1 else rep  # the tokens a rank routes
+        rows = tuple(Shard(1) if isinstance(pl, Shard) else pl for pl in own)  # (E, groups*C, d)
+        summed = tuple(Partial() if isinstance(pl, Shard) else pl for pl in own)
 
-    def local(t):  # every rank's whole copy of a DTensor
-        return t if mesh is None else t.redistribute(mesh, rep).to_local()
+    def local(t, pl, grad_pl=None):  # a rank's part of a DTensor under pl
+        return t if mesh is None else t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
 
-    def placed(t):  # a whole copy that every rank holds alike, as a DTensor
-        return t if mesh is None else DTensor.from_local(t, mesh, rep, run_check=False)
+    def placed(t, pl):  # a rank's part as a DTensor under pl
+        return t if mesh is None else DTensor.from_local(t, mesh, pl, run_check=False)
 
-    xf = local(x).reshape(T, d)
-    logits = (xf.float() @ local(p["router"]).float()).view(ng, G, E)
+    def joined(v):  # a mean over a rank's groups -> over all of them
+        if mesh is None:
+            return v
+        return placed(v / n, summed).redistribute(mesh, rep) if n > 1 else placed(v, rep)
+
+    T, ng = T // n, ng // n  # from here on, a rank's own
+    xf = local(x, own).reshape(T, d)
+    # the router's gradient from a rank's own tokens: a partial sum
+    logits = (xf.float() @ local(p["router"], rep, summed).float()).view(ng, G, E)
     probs = torch.softmax(logits, dim=-1)
-    # top-K; a stable descending sort puts equal probabilities in expert order
-    idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
+    idx = top_k(probs.detach(), K)
     gates = probs.gather(-1, idx)  # (ng, G, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
@@ -357,16 +392,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     table[row.reshape(-1)] = token.reshape(-1)  # kept rows are distinct
 
     x0 = torch.cat([xf, xf.new_zeros(1, d)])
-    xin = placed(x0.index_select(0, table[:n_rows]).view(E, ng * C, d))
+    xin = placed(x0.index_select(0, table[:n_rows]).view(E, ng * C, d), rows)
     h = F.silu(torch.bmm(xin, p["w_gate"].to(dt))) * torch.bmm(xin, p["w_up"].to(dt))
-    eo = local(torch.bmm(h, p["w_down"].to(dt))).view(n_rows, d)
+    eo = local(torch.bmm(h, p["w_down"].to(dt)), rows).view(n_rows, d)
     eo = torch.cat([eo, eo.new_zeros(1, d)])
     row = row.view(T, K)
     w = torch.where(keep, gates, 0.0).to(dt).float().view(T, K)
     out = eo.index_select(0, row[:, 0]).float() * w[:, :1]
     for k in range(1, K):
         out = out + eo.index_select(0, row[:, k]).float() * w[:, k:k + 1]
-    out = constrain(placed(out.to(dt).view(B, S, d)), "act_batch", "act_seq", None)
+    out = constrain(placed(out.to(dt).view(B // n, S, d), own), "act_batch", "act_seq", None)
 
     if "shared" in p:
         out = out + ffn(p["shared"], x)
@@ -378,6 +413,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, di
     z = torch.logsumexp(logits, dim=-1)
     z_loss = (z ** 2).mean() * spec.router_z_loss
     dropped = 1.0 - keep.sum() / (ng * G * K)
-    aux = {"moe_lb_loss": placed(lb_loss), "moe_z_loss": placed(z_loss),
-           "moe_dropped_frac": placed(dropped)}
+    aux = {"moe_lb_loss": joined(lb_loss), "moe_z_loss": joined(z_loss),
+           "moe_dropped_frac": joined(dropped)}
     return out, aux

@@ -79,14 +79,20 @@ def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
 
 def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
                     grad_compression: Optional[str] = None, n_microbatches: int = 1, *,
-                    dtype: torch.dtype = torch.bfloat16) -> Callable:
+                    dtype: torch.dtype = torch.bfloat16, donate: bool = False) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     gradients of :func:`loss_and_grads` (``n_microbatches`` as there), then
     the optimizer.  ``REPRO_OPT8BIT=1``, read when the step is made, takes
-    the 8-bit optimizer state.
+    the 8-bit optimizer state.  ``donate=True`` updates the f32 AdamW's
+    params and moments in place (``adamw.apply``'s ``donate``): the caller
+    gives up the ones it passed, and the step holds one copy of them.
     """
     use_8bit = os.environ.get("REPRO_OPT8BIT") == "1"
-    apply_fn = adamw.apply_8bit if use_8bit else adamw.apply
+    if use_8bit:
+        apply_fn = adamw.apply_8bit
+    else:
+        def apply_fn(*args):
+            return adamw.apply(*args, donate=donate)
 
     def train_step(params: dict, opt_state: adamw.AdamWState, batch: dict):
         _, metrics, grads = loss_and_grads(cfg, params, batch,

@@ -76,20 +76,34 @@ def _clip_and_step(cfg: AdamWConfig, state: AdamWState, grads: dict):
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict):
+def apply(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict, *,
+          donate: bool = False):
     """One AdamW update. Returns (new_params, new_state, metrics); weight
-    decay applies to every leaf, norms included, as in the reference."""
+    decay applies to every leaf, norms included, as in the reference.
+
+    ``donate=True`` hands the params' and moments' storage to the update, as
+    ``jax.jit``'s ``donate_argnums`` does: each leaf is updated in place
+    (the dicts returned hold the same tensors) by the same operations in
+    the same order, so to the same bits, and no second copy of the weights
+    and moments is made (the caller must not read the old values)."""
     gnorm, scale, step, lr, b1c, b2c = _clip_and_step(cfg, state, grads)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads[k].float() * scale
-        m_n = cfg.b1 * state.m[k] + (1.0 - cfg.b1) * g
-        v_n = cfg.b2 * state.v[k] + (1.0 - cfg.b2) * torch.square(g)
-        mhat = m_n / b1c
-        vhat = v_n / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k], new_v[k] = m_n, v_n
+        m, v = (state.m[k], state.v[k]) if donate else (state.m[k].clone(), state.v[k].clone())
+        m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_(torch.square(g).mul_(1.0 - cfg.b2))
+        del g
+        # mhat / (sqrt(vhat) + eps) + weight_decay * p, times lr
+        delta = m / b1c
+        delta.div_((v / b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float()).mul_(lr)
+        if donate and p.dtype == torch.float32:
+            new_p[k] = p.sub_(delta)
+        else:
+            new = (p.float() - delta).to(p.dtype)
+            new_p[k] = p.copy_(new) if donate else new
+        new_m[k], new_v[k] = m, v
     return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}
 
 

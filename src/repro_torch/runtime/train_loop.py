@@ -104,6 +104,10 @@ class TrainReport:
         return self.productive_wall_s / self.total_wall_s
 
 
+# checkpoints kept on disk, as the reference's trainer keeps them
+KEEP = 2
+
+
 def optimizer_config(tcfg: TrainerConfig) -> adamw.AdamWConfig:
     """The trainer's AdamW schedule: warmup over 5 steps to ``tcfg.lr``."""
     return adamw.AdamWConfig(lr=tcfg.lr, warmup_steps=5, total_steps=max(tcfg.total_steps, 10))
@@ -126,13 +130,16 @@ class FaultTolerantTrainer:
         self.defs = transformer.model_defs(cfg)
         self.step_fn = make_train_step(
             cfg, optimizer_config(tcfg), grad_compression=tcfg.grad_compression,
-            n_microbatches=tcfg.n_microbatches, dtype=dtype)
+            n_microbatches=tcfg.n_microbatches, dtype=dtype,
+            # the loop drops the params and state it passes: updated in
+            # place, they are held once (the same bits)
+            donate=True)
         self.pipeline = SyntheticLMPipeline(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed))
         self.policy = CheckpointPolicy(
             n_nodes=tcfg.n_nodes, r_f_per_node_day=tcfg.r_f_per_node_day)
-        self.manager = CheckpointManager(tcfg.ckpt_dir, keep=2,
+        self.manager = CheckpointManager(tcfg.ckpt_dir, keep=KEEP,
                                          async_mode=tcfg.ckpt_async)
         self.node_histories = {i: NodeHistory(i) for i in range(tcfg.n_nodes)}
         self.detector = LemonDetector()

@@ -75,6 +75,47 @@ def test_save_restore_bit_exact(tmp_ckpt):
         assert torch.equal(a, b), "bit-exact"
 
 
+def test_read_npz_gives_np_load_arrays(tmp_path):
+    """The restore's reader gives what ``np.load`` gives, member for member:
+    dtypes (bf16 bit patterns as uint16), C and Fortran order, a 0-d
+    scalar, an empty array."""
+    from repro_torch.checkpoint.manager import _read_npz
+
+    rng = np.random.default_rng(3)
+    arrays = {"f32": rng.standard_normal((33, 17)).astype(np.float32),
+              "fortran": np.asfortranarray(rng.standard_normal((5, 9))),
+              "bf16": rng.integers(0, 2 ** 16, (7, 3)).astype(np.uint16),
+              "step": np.array(11, np.int32), "int8": rng.integers(-127, 128, 40).astype(np.int8),
+              "empty": np.zeros((0, 4), np.float32)}
+    np.savez(tmp_path / "a.npz", **arrays)
+    got = _read_npz(tmp_path / "a.npz", list(arrays)[::-1])
+    with np.load(tmp_path / "a.npz") as want:
+        for k in arrays:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+            assert got[k].flags.f_contiguous == want[k].flags.f_contiguous, k
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_read_npz_checks_each_members_crc(tmp_path):
+    """A flipped byte in a stored member's data fails its CRC-32, as
+    ``zipfile`` fails it; a compressed member, which no checkpoint writer
+    makes, is refused."""
+    import zipfile
+
+    from repro_torch.checkpoint.manager import _read_npz
+
+    np.savez(tmp_path / "a.npz", x=np.arange(1000, dtype=np.float32))
+    raw = bytearray((tmp_path / "a.npz").read_bytes())
+    at = raw.find(np.arange(1000, dtype=np.float32)[500:504].tobytes())
+    raw[at] ^= 1
+    (tmp_path / "a.npz").write_bytes(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        _read_npz(tmp_path / "a.npz", ["x"])
+    np.savez_compressed(tmp_path / "c.npz", x=np.arange(10))
+    with pytest.raises(zipfile.BadZipFile, match="compressed"):
+        _read_npz(tmp_path / "c.npz", ["x"])
+
+
 def test_async_mode_and_gc(tmp_ckpt):
     mgr = CheckpointManager(tmp_ckpt, keep=2, async_mode=True)
     tree = _tree()

@@ -11,7 +11,7 @@ it takes ``jax.value_and_grad(transformer.loss_fn)``, one
 ``make_train_step`` step, and the same step with ``n_microbatches=2`` (the
 stubs split along the batch as the tokens are) with the halves' f32
 gradient sum / 2.  The port loads the same weights and runs in f32 on the
-CPU.  Cases here: seamless at Se = S and at Se = S / 2.  Beside them: the
+CPU.  Cases here: seamless at Se = S, S / 2 and 2 S.  Beside them: the
 port's Server against the JAX Server (zero frames, bf16 weights), both
 trainers failing on an encoder-decoder config (their pipelines yield no
 frames), the launcher, ``ops.flash_attention`` without a mask at Sq != Sk
@@ -61,6 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CASES = {
     "seamless": (ARCH, {}, S, 0, S),
     "seamless-half-frames": (ARCH, {}, S // 2, 0, S),
+    "seamless-double-frames": (ARCH, {}, 2 * S, 0, S),
 }
 SERVE = dict(batch=2, prompt_len=16, max_new_tokens=6)
 

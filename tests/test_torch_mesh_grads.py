@@ -20,7 +20,11 @@ Cases, each through ``steps.loss_and_grads`` on DTensor params placed by
   ``data``), the constraints around the low-rank reshape and unbind;
 * smoke recurrentgemma-9b: RG-LRU through ``local_map`` (channels over
   ``model``), and MQA local attention whose one kv head is sliced on every
-  model rank (its gradient Partial over ``model``).
+  model rank (its gradient Partial over ``model``);
+* smoke mixtral-8x22b: MoE routed on each data rank's own group of 64
+  tokens (``layers.routes``), the router's gradient Partial over
+  ``data``, the aux losses averaged over the data ranks, the experts'
+  matmuls on their ``model`` shards.
 
 The JAX gradients are taken unsharded (a gradient does not depend on the
 layout).  The same run also calls WKV-6 and RG-LRU on the mesh with a
@@ -40,6 +44,7 @@ CASES = {
     "rsc-llm-cp": ("rsc-llm", {"n_heads": 3, "n_kv_heads": 1}),
     "rwkv6-7b": ("rwkv6-7b", {}),
     "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+    "mixtral-8x22b": ("mixtral-8x22b", {}),
 }
 # max |g - g_jax| over a leaf, relative to max |g_jax| (f32 sums in other
 # orders, over two layers or more); a factor-2 fault is 0.5 or more
@@ -77,7 +82,7 @@ def runs(tmp_path_factory):
         from torch.distributed.tensor import DTensor, distribute_tensor
         from repro_torch.configs.base import get_arch, smoke_config
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models import transformer
+        from repro_torch.models import layers, transformer
         from repro_torch.models.convert import from_jax_params
         from repro_torch.models.steps import loss_and_grads
         from repro_torch.parallel.axes import TRAIN_RULES, mesh_context, placements_for
@@ -95,7 +100,10 @@ def runs(tmp_path_factory):
                 batch = {{"tokens": distribute_tensor(
                     tokens, mesh, placements_for(tokens.shape, ("act_batch", None)),
                     src_data_rank=None)}}
+                before = dict(layers.routes)
                 loss, _, grads = loss_and_grads(cfg, dp, batch, dtype=torch.float32)
+                res[name + "/routes"] = np.array(
+                    [layers.routes[k] - before[k] for k in ("per_rank", "whole_batch")])
                 # each gradient as the optimizer meets it: on its param's placements
                 for k, g in grads.items():
                     assert isinstance(g, DTensor), k
@@ -144,6 +152,9 @@ def runs(tmp_path_factory):
 def test_mesh_grads_match_jax(runs, name):
     want, got = runs
     assert abs(float(got[name + "/loss"]) - float(want[name + "/loss"])) < 1e-5
+    per_rank, whole_batch = got[name + "/routes"]
+    # MoE: every call (the forward's and the remat recompute's) routes per rank
+    assert whole_batch == 0 and (per_rank > 0) == (name == "mixtral-8x22b")
     pre = name + "/grads/"
     w = {k[len(pre):]: want[k] for k in want if k.startswith(pre)}
     g = {k[len(pre):]: got[k] for k in got if k.startswith(pre)}

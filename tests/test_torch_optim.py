@@ -68,6 +68,29 @@ def test_adamw_steps_match_jax(clip):
     assert int(ts.step) == int(js.step) == 3 and ts.step.dtype == torch.int32
 
 
+@pytest.mark.parametrize("clip", [1.0, 1e-3])
+def test_donated_adamw_updates_in_place_to_the_same_bits(clip):
+    """``donate=True`` (the trainer's step) writes each leaf's update into
+    the params' and moments' own storage, by the same operations in the same
+    order: three steps equal the functional update's bits, an f32 and a bf16
+    leaf alike, and no new tensor is returned."""
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5, grad_clip=clip)
+    p = _torch(_np_params())
+    p["h"] = p["w"][:, :32].to(torch.bfloat16)
+    fp, fs = dict(p), adamw.init(p)
+    dp, ds = {k: v.clone() for k, v in p.items()}, adamw.init(p)
+    for i in range(3):
+        g = {k: torch.cos(v.float() + i * 0.1) * 0.05 for k, v in fp.items()}
+        fp, fs, fm = adamw.apply(cfg, fp, fs, g)
+        ptrs = [t.data_ptr() for t in (*dp.values(), *ds.m.values(), *ds.v.values())]
+        dp, ds, dm = adamw.apply(cfg, dp, ds, g, donate=True)
+        assert [t.data_ptr() for t in (*dp.values(), *ds.m.values(), *ds.v.values())] == ptrs
+        for k in p:
+            for a, b in ((fp[k], dp[k]), (fs.m[k], ds.m[k]), (fs.v[k], ds.v[k])):
+                assert a.dtype == b.dtype and torch.equal(a, b), k
+        assert torch.equal(fm["grad_norm"], dm["grad_norm"]) and int(ds.step) == i + 1
+
+
 def test_adamw_8bit_step_matches_jax():
     cfg_kw = dict(lr=1e-2, warmup_steps=1, total_steps=50)
     jcfg, tcfg = jadamw.AdamWConfig(**cfg_kw), adamw.AdamWConfig(**cfg_kw)

@@ -96,6 +96,34 @@ def test_faulty_run_matches_clean_run_bit_exact(cfg, tmp_path, dtype):
     assert clean.losses == faulty.losses[:10] + faulty.losses[10 + 2:]  # replayed 8, 9
 
 
+def test_async_checkpoint_of_a_donated_step_resumes_bit_exact(cfg, tmp_path, monkeypatch):
+    """An async write that is still running while the next steps update the
+    params and moments in place writes the values of its own step: with
+    ``np.savez`` held back, the run that crashes and resumes from such a
+    checkpoint lands on the clean run's bits."""
+    from repro_torch.checkpoint import manager as manager_mod
+
+    _, clean = _train(cfg, tmp_path / "clean", steps=12, ckpt_every=4, seed=5)
+    savez = np.savez
+
+    def late_savez(*args, **kw):
+        time.sleep(0.5)  # the step loop runs on meanwhile
+        return savez(*args, **kw)
+
+    monkeypatch.setattr(manager_mod.np, "savez", late_savez)
+    tr, faulty = _train(cfg, tmp_path / "faulty", steps=12, ckpt_every=4, seed=5,
+                        ckpt_async=True,
+                        schedule={7: InjectedFault("gpu_memory_errors", node_id=0)})
+    monkeypatch.undo()
+    assert faulty.final_step == 12 and [a.start_step for a in faulty.attempts] == [0, 4]
+    pc, oc = _final_checkpoint(cfg, tmp_path / "clean", 5)
+    pf, of = _final_checkpoint(cfg, tmp_path / "faulty", 5)
+    for k in pc:
+        assert torch.equal(pc[k], pf[k]), k
+        assert torch.equal(oc.m[k], of.m[k]) and torch.equal(oc.v[k], of.v[k]), k
+    assert clean.losses == faulty.losses[:7] + faulty.losses[7 + 3:]  # replayed 4, 5, 6
+
+
 def test_loss_decreases(cfg, tmp_path):
     _, rep = _train(cfg, tmp_path / "l", steps=30)
     assert np.mean(rep.losses[-5:]) < np.mean(rep.losses[:5])
