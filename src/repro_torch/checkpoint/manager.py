@@ -96,15 +96,48 @@ def _decode(a: np.ndarray, dtype_name: str) -> "torch.Tensor":
     return tensor_from_numpy(a) if dtype_name == _BF16 else torch.from_numpy(a)
 
 
+# threads that read, write and sum a checkpoint's members, in pieces of at
+# most IO_CHUNK bytes (one thread's reads, writes or sums fall well short of
+# what the host's memory and disk take)
+IO_THREADS = 8
+IO_CHUNK = 1 << 28
+
+
+def _pieces(view: memoryview, offset: int) -> Iterator[tuple[memoryview, int]]:
+    """``view`` cut into IO_CHUNK pieces, each with its file offset."""
+    for i in range(0, len(view), IO_CHUNK):
+        yield view[i:i + IO_CHUNK], offset + i
+
+
+def _pread(fd: int, view: memoryview, offset: int) -> None:
+    """Fill ``view`` from the file at ``offset``, in as many reads as it takes."""
+    got = 0
+    while got < len(view):
+        n = os.preadv(fd, [view[got:]], offset + got)
+        if not n:
+            raise zipfile.BadZipFile("a checkpoint member is cut short")
+        got += n
+
+
+def _pwrite(fd: int, data, offset: int) -> None:
+    """Write all of ``data`` at ``offset``, in as many writes as it takes."""
+    view = memoryview(data)
+    done = 0
+    while done < len(view):
+        done += os.pwrite(fd, view[done:], offset + done)
+
+
 def _read_npz(path: pathlib.Path, keys: list) -> dict[str, np.ndarray]:
-    """The arrays ``keys`` of the npz at ``path`` (``np.savez``'s, members
-    stored), as ``np.load`` gives them: each member read into its own array
-    in one read (``np.load`` reads a zip member 256 KiB at a time, at a
-    fraction of the disk's rate) and its CRC-32 checked as ``zipfile``
-    checks it, the sums on a thread pool."""
+    """The arrays ``keys`` of the npz at ``path`` (members stored, as
+    ``np.savez`` and ``_write_npz`` write them), as ``np.load`` gives them:
+    each member read into its own array and its CRC-32 checked as
+    ``zipfile`` checks it, the reads and the sums on IO_THREADS threads
+    (``np.load`` reads a zip member 256 KiB at a time, at a fraction of the
+    disk's rate)."""
     out: dict[str, np.ndarray] = {}
-    with zipfile.ZipFile(path) as zf, open(path, "rb") as f, ThreadPoolExecutor(8) as pool:
-        sums = []
+    members = []
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f, \
+            ThreadPoolExecutor(IO_THREADS) as pool:
         for key in keys:
             info = zf.getinfo(key + ".npy")
             if info.compress_type != zipfile.ZIP_STORED:
@@ -122,19 +155,82 @@ def _read_npz(path: pathlib.Path, keys: list) -> dict[str, np.ndarray]:
             header = f.read(head)
             a = np.empty(shape, dtype, order="F" if fortran else "C")
             view = memoryview(a.reshape(-1, order="A")).cast("B")
-            got = 0
-            while got < len(view):
-                n = f.readinto(view[got:])
-                if not n:
-                    raise zipfile.BadZipFile(f"{path}: {info.filename} is cut short")
-                got += n
-            sums.append((info, pool.submit(lambda h, v: zlib.crc32(v, zlib.crc32(h)),
-                                           header, view)))
+            if head + len(view) != info.file_size:
+                raise zipfile.BadZipFile(f"{path}: {info.filename} holds {info.file_size} "
+                                         f"bytes, not the {head + len(view)} its header says")
+            members.append((info, header, view, start + head))
             out[key] = a
-        for info, crc in sums:
+        for r in [pool.submit(_pread, f.fileno(), *piece) for _, _, view, at in members
+                  for piece in _pieces(view, at)]:
+            r.result()
+        sums = [pool.submit(lambda h, v: zlib.crc32(v, zlib.crc32(h)), header, view)
+                for _, header, view, _ in members]
+        for (info, *_), crc in zip(members, sums):
             if crc.result() != info.CRC:
                 raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r} in {path}")
     return out
+
+
+def _dos_time(t: float) -> tuple[int, int]:
+    """(time, date) in the zip format's DOS fields, as ``zipfile`` stamps them."""
+    y, mo, d, h, mi, s = time.localtime(t)[:6]
+    return h << 11 | mi << 5 | s // 2, (y - 1980) << 9 | mo << 5 | d
+
+
+def _write_npz(path: pathlib.Path, arrays: dict[str, np.ndarray]) -> None:
+    """The npz ``np.savez(path, **arrays)`` writes: a zip of stored
+    ``<key>.npy`` members with zip64 size fields, each member the ``.npy``
+    header ``np.save`` writes and the array's bytes in C order, so
+    ``np.load`` and ``zipfile`` read it.  Every member's place in the file
+    follows from the sizes, so the arrays' bytes are written and their
+    CRC-32s summed on IO_THREADS threads at once, and the local headers,
+    which hold the sums, after (``np.savez`` sums, copies and writes each
+    16 MiB chunk in turn, on one thread).  The central directory and its end
+    records are zip64 whatever the sizes."""
+    from io import BytesIO
+
+    version = 45  # zip64
+    full = 0xFFFFFFFF  # a 32-bit field whose value is in the zip64 extra field
+    dos_time, dos_date = _dos_time(time.time())
+    members, offset = [], 0
+    for key, a in arrays.items():
+        a = np.require(a, requirements="C")
+        head = BytesIO()
+        np.lib.format.write_array_header_1_0(head, np.lib.format.header_data_from_array_1_0(a))
+        name, head = (key + ".npy").encode(), head.getvalue()
+        data = memoryview(a.reshape(-1)).cast("B")
+        members.append((name, head, data, offset))
+        offset += 30 + len(name) + 20 + len(head) + len(data)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            sums = [pool.submit(lambda h, v: zlib.crc32(v, zlib.crc32(h)), head, data)
+                    for _, head, data, _ in members]
+            writes = [pool.submit(_pwrite, fd, *piece) for name, head, data, at in members
+                      for piece in _pieces(data, at + 30 + len(name) + 20 + len(head))]
+            for w in writes:
+                w.result()
+            central = []
+            for (name, head, data, at), crc in zip(members, sums):
+                size = len(head) + len(data)
+                _pwrite(fd, struct.pack("<IHHHHHIIIHH", 0x04034B50, version, 0,
+                                        zipfile.ZIP_STORED, dos_time, dos_date, crc.result(),
+                                        full, full, len(name), 20)
+                        + name + struct.pack("<HHQQ", 1, 16, size, size) + head, at)
+                central.append(struct.pack(
+                    "<IHHHHHHIIIHHHHHII", 0x02014B50, 3 << 8 | version, version, 0,
+                    zipfile.ZIP_STORED, dos_time, dos_date, crc.result(), full, full, len(name),
+                    28, 0, 0, 0, 0o600 << 16, full)
+                    + name + struct.pack("<HHQQQ", 1, 24, size, size, at))
+        central = b"".join(central)
+        end, n = offset + len(central), len(members)
+        _pwrite(fd, central + struct.pack(
+            "<IQHHIIQQQQ", 0x06064B50, 44, 3 << 8 | version, version, 0, 0, n, n,
+            len(central), offset) + struct.pack("<IIQI", 0x07064B50, 0, end, 1)
+            + struct.pack("<IHHHHIIH", 0x06054B50, 0, 0, min(n, 0xFFFF), min(n, 0xFFFF),
+                          min(len(central), full), min(offset, full), 0), offset)
+    finally:
+        os.close(fd)
 
 
 @dataclass
@@ -180,7 +276,7 @@ class CheckpointManager:
             if tmp.exists():
                 shutil.rmtree(tmp)
             tmp.mkdir(parents=True)
-            np.savez(tmp / "arrays.npz", **{k: v for k, (v, _) in host.items()})
+            _write_npz(tmp / "arrays.npz", {k: v for k, (v, _) in host.items()})
             manifest = {
                 "step": step,
                 "dtypes": {k: d for k, (_, d) in host.items()},

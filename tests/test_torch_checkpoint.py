@@ -96,6 +96,39 @@ def test_read_npz_gives_np_load_arrays(tmp_path):
             np.testing.assert_array_equal(got[k], want[k])
 
 
+@pytest.mark.parametrize("chunk", [1 << 28, 40])
+def test_write_npz_is_the_npz_np_savez_writes(tmp_path, monkeypatch, chunk):
+    """The checkpoint writer's npz holds the members ``np.savez`` writes, in
+    its order, byte for byte (a Fortran-ordered array in C order, the same
+    values), each with its CRC-32: ``zipfile`` checks every member,
+    ``np.load`` and the restore's reader give the arrays back.  With a
+    40-byte piece, every member is written and read in many pieces."""
+    import zipfile
+
+    from repro_torch.checkpoint import manager as manager_mod
+
+    monkeypatch.setattr(manager_mod, "IO_CHUNK", chunk)
+    rng = np.random.default_rng(4)
+    arrays = {"0/embed": rng.standard_normal((33, 17)).astype(np.float32),
+              "1/.m/w": rng.integers(0, 2 ** 16, (7, 3, 5)).astype(np.uint16),
+              "1/.step": np.array(11, np.int32), "i64": np.arange(9, dtype=np.int64),
+              "empty": np.zeros((0, 4), np.float32),
+              "fortran": np.asfortranarray(rng.standard_normal((5, 9)))}
+    np.savez(tmp_path / "want.npz", **arrays)
+    manager_mod._write_npz(tmp_path / "got.npz", arrays)
+    with zipfile.ZipFile(tmp_path / "got.npz") as got, zipfile.ZipFile(tmp_path / "want.npz") as want:
+        assert got.testzip() is None
+        assert got.namelist() == want.namelist() == [k + ".npy" for k in arrays]
+        for name in want.namelist():
+            assert (got.read(name) == want.read(name)) == (name != "fortran.npy"), name
+    read = manager_mod._read_npz(tmp_path / "got.npz", list(arrays))
+    with np.load(tmp_path / "got.npz") as loaded:
+        for k, a in arrays.items():
+            assert loaded[k].dtype == a.dtype and loaded[k].shape == a.shape, k
+            np.testing.assert_array_equal(loaded[k], a)
+            np.testing.assert_array_equal(read[k], a)
+
+
 def test_read_npz_checks_each_members_crc(tmp_path):
     """A flipped byte in a stored member's data fails its CRC-32, as
     ``zipfile`` fails it; a compressed member, which no checkpoint writer

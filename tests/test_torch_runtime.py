@@ -98,19 +98,19 @@ def test_faulty_run_matches_clean_run_bit_exact(cfg, tmp_path, dtype):
 
 def test_async_checkpoint_of_a_donated_step_resumes_bit_exact(cfg, tmp_path, monkeypatch):
     """An async write that is still running while the next steps update the
-    params and moments in place writes the values of its own step: with
-    ``np.savez`` held back, the run that crashes and resumes from such a
-    checkpoint lands on the clean run's bits."""
+    params and moments in place writes the values of its own step: with the
+    npz writer (``manager._write_npz``) held back, the run that crashes and
+    resumes from such a checkpoint lands on the clean run's bits."""
     from repro_torch.checkpoint import manager as manager_mod
 
     _, clean = _train(cfg, tmp_path / "clean", steps=12, ckpt_every=4, seed=5)
-    savez = np.savez
+    write_npz = manager_mod._write_npz
 
-    def late_savez(*args, **kw):
+    def late_write_npz(*args, **kw):
         time.sleep(0.5)  # the step loop runs on meanwhile
-        return savez(*args, **kw)
+        return write_npz(*args, **kw)
 
-    monkeypatch.setattr(manager_mod.np, "savez", late_savez)
+    monkeypatch.setattr(manager_mod, "_write_npz", late_write_npz)
     tr, faulty = _train(cfg, tmp_path / "faulty", steps=12, ckpt_every=4, seed=5,
                         ckpt_async=True,
                         schedule={7: InjectedFault("gpu_memory_errors", node_id=0)})

@@ -20,8 +20,10 @@ window 16 < S; smoke gemma3-4b (local and global layers, qk_norm, tied
 embeddings, d_head 16 for its 256); smoke mixtral-8x22b (local layers and
 the MoE FFN, top-2, whose aux losses enter the loss and the metrics) and
 smoke llama4-scout-17b-a16e (chunked layers with a chunk of 16 < S, the MoE
-FFN top-1 with a shared expert).  The first two, rwkv6-7b,
-recurrentgemma-9b, gemma3-4b and mixtral-8x22b are also stepped with
+FFN top-1 with a shared expert); smoke starcoder2-3b (GQA, the non-gated
+FFN) and smoke granite-20b (MQA, the non-gated FFN).  The first two,
+rwkv6-7b, recurrentgemma-9b, gemma3-4b, mixtral-8x22b, qwen3-0.6b and
+granite-20b are also stepped with
 ``n_microbatches=2`` (tests/test_smoke_archs.py's microbatch check), and the
 reference's accumulated gradients are saved beside the step.
 Tolerances: 1e-5 on the loss and the metrics, 1e-4 on every gradient (two
@@ -63,10 +65,12 @@ CASES = {
     "gemma3-4b": ("gemma3-4b", {}, False),
     "mixtral-8x22b": ("mixtral-8x22b", {}, False),
     "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {"window": 16}, False),
+    "starcoder2-3b": ("starcoder2-3b", {}, False),
+    "granite-20b": ("granite-20b", {}, False),
 }
 # cases also stepped with n_microbatches=2 (a microbatch of one row each)
 MB_CASES = ("rsc-llm", "rsc-llm-chunked-masked", "rwkv6-7b", "recurrentgemma-9b",
-            "gemma3-4b", "mixtral-8x22b")
+            "gemma3-4b", "mixtral-8x22b", "qwen3-0.6b", "granite-20b")
 B, S = 2, 32
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LR = dict(lr=1e-3, warmup_steps=2, total_steps=10)
