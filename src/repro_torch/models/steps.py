@@ -83,16 +83,17 @@ def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     gradients of :func:`loss_and_grads` (``n_microbatches`` as there), then
     the optimizer.  ``REPRO_OPT8BIT=1``, read when the step is made, takes
-    the 8-bit optimizer state.  ``donate=True`` updates the f32 AdamW's
-    params and moments in place (``adamw.apply``'s ``donate``): the caller
-    gives up the ones it passed, and the step holds one copy of them.
+    the 8-bit optimizer state (``adamw.init_8bit``; the step's ``opt8bit``
+    says which state it takes).  ``donate=True`` updates the params and
+    moments in place (``adamw.apply``'s and ``apply_8bit``'s ``donate``):
+    the caller gives up the ones it passed, and the step holds one copy of
+    them.
     """
     use_8bit = os.environ.get("REPRO_OPT8BIT") == "1"
-    if use_8bit:
-        apply_fn = adamw.apply_8bit
-    else:
-        def apply_fn(*args):
-            return adamw.apply(*args, donate=donate)
+    apply = adamw.apply_8bit if use_8bit else adamw.apply
+
+    def apply_fn(*args):
+        return apply(*args, donate=donate)
 
     def train_step(params: dict, opt_state: adamw.AdamWState, batch: dict):
         _, metrics, grads = loss_and_grads(cfg, params, batch,
@@ -103,6 +104,7 @@ def make_train_step(cfg: ArchConfig, opt: adamw.AdamWConfig,
             params, opt_state, opt_metrics = apply_fn(opt, params, opt_state, grads)
         return params, opt_state, dict(metrics, **opt_metrics)
 
+    train_step.opt8bit = use_8bit
     return train_step
 
 

@@ -13,6 +13,14 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+
+# the donated 8-bit update works through a quantized leaf SLICE_ELEMENTS
+# at a time (whole blocks), and the global norm a large leaf, so that no
+# temporary of either exceeds that many elements: 256 MiB in f32, where a
+# whole (5120, 202048) leaf is 4.1 GB
+SLICE_ELEMENTS = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -55,9 +63,15 @@ def init(params: dict) -> AdamWState:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
+    """The L2 norm over every leaf, in f32; a leaf of more than
+    SLICE_ELEMENTS elements is squared and summed SLICE_ELEMENTS at a time
+    (its whole square was a temporary as large as the leaf), but for a
+    DTensor, whose sharded dims cannot be flattened."""
     total = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
     for x in tree.values():
-        total = total + torch.sum(torch.square(x.float()))
+        whole = x.numel() <= SLICE_ELEMENTS or isinstance(x, DTensor)  # a shard is local
+        for part in (x,) if whole else x.reshape(-1).split(SLICE_ELEMENTS):
+            total = total + torch.sum(torch.square(part.float()))
     return torch.sqrt(total)
 
 
@@ -152,21 +166,71 @@ def init_8bit(params: dict) -> AdamWState:
                       v={k: z(p) for k, p in params.items()})
 
 
+def _update_8bit(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c):
+    """One leaf's (or slice's) 8-bit AdamW update: (new p, new m, new v),
+    the moments as ``_q8`` entries where ``m`` and ``v`` are."""
+    quant = isinstance(m, dict)
+    m = _dq8(m) if quant else m
+    v = _dq8(v) if quant else v
+    g = g.float() * scale
+    m_n = cfg.b1 * m + (1.0 - cfg.b1) * g
+    v_n = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
+    delta = (m_n / b1c) / (torch.sqrt(v_n / b2c) + cfg.eps) \
+        + cfg.weight_decay * p.float()
+    new_p = (p.float() - lr * delta).to(p.dtype)
+    return new_p, (_q8(m_n) if quant else m_n), (_q8(v_n) if quant else v_n)
+
+
+def _block_slices(p: torch.Tensor, g: torch.Tensor, m: Any, v: Any):
+    """(p, g, m, v) of one leaf in slices of whole quantization blocks, each
+    a view of the leaf's storage: the leaf as (blocks, block) rows, its
+    scales as (blocks, 1), at most SLICE_ELEMENTS elements a slice.  The
+    blocks lie along the last axis, so every block stays whole and
+    ``_q8`` of a slice finds the leaf's own block size.  An f32 moment
+    (a leaf under QUANT_MIN_SIZE) or a DTensor leaf is one slice."""
+    if not isinstance(m, dict) or isinstance(p, DTensor):
+        yield p, g, m, v
+        return
+    blk = _opt_block(p.shape[-1])
+    rows = max(SLICE_ELEMENTS // blk, 1)
+    p2, g2 = p.view(-1, blk), g.reshape(-1, blk)
+    m2 = {"q": m["q"].view(-1, blk), "s": m["s"].view(-1, 1)}
+    v2 = {"q": v["q"].view(-1, blk), "s": v["s"].view(-1, 1)}
+    for i in range(0, p2.shape[0], rows):
+        cut = slice(i, i + rows)
+        yield (p2[cut], g2[cut], {k: t[cut] for k, t in m2.items()},
+               {k: t[cut] for k, t in v2.items()})
+
+
+def _write(dst: Any, src: Any) -> None:
+    """``src`` (a tensor or a ``_q8`` entry) into ``dst``'s storage."""
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k].copy_(src[k])
+    else:
+        dst.copy_(src)
+
+
 @torch.no_grad()
-def apply_8bit(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict):
-    """AdamW with int8-quantized m/v (dequant -> update -> requant)."""
+def apply_8bit(cfg: AdamWConfig, params: dict, state: AdamWState, grads: dict, *,
+               donate: bool = False):
+    """AdamW with int8-quantized m/v (dequant -> update -> requant).
+
+    ``donate=True`` writes the new params, the moments' int8 codes and f32
+    scales (and the f32 moments of leaves under QUANT_MIN_SIZE) into the
+    tensors it was given, as ``apply``'s ``donate`` does, a slice of whole
+    blocks at a time (``_block_slices``): the same operations in the same
+    order, so the same bits, with no temporary over SLICE_ELEMENTS."""
     gnorm, scale, step, lr, b1c, b2c = _clip_and_step(cfg, state, grads)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        quant = _quantizable(p)
-        m = _dq8(state.m[k]) if quant else state.m[k]
-        v = _dq8(state.v[k]) if quant else state.v[k]
-        g = grads[k].float() * scale
-        m_n = cfg.b1 * m + (1.0 - cfg.b1) * g
-        v_n = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
-        delta = (m_n / b1c) / (torch.sqrt(v_n / b2c) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k] = _q8(m_n) if quant else m_n
-        new_v[k] = _q8(v_n) if quant else v_n
+        if not donate:
+            new_p[k], new_m[k], new_v[k] = _update_8bit(
+                cfg, p, grads[k], state.m[k], state.v[k], scale, lr, b1c, b2c)
+            continue
+        for ps, gs, ms, vs in _block_slices(p, grads[k], state.m[k], state.v[k]):
+            for dst, src in zip((ps, ms, vs), _update_8bit(cfg, ps, gs, ms, vs, scale, lr,
+                                                            b1c, b2c)):
+                _write(dst, src)
+        new_p[k], new_m[k], new_v[k] = p, state.m[k], state.v[k]
     return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}

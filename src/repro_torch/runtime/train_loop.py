@@ -113,9 +113,18 @@ def optimizer_config(tcfg: TrainerConfig) -> adamw.AdamWConfig:
     return adamw.AdamWConfig(lr=tcfg.lr, warmup_steps=5, total_steps=max(tcfg.total_steps, 10))
 
 
+def _to(tree, device):
+    """A tensor, or each tensor of nested dicts (the 8-bit moments' {"q",
+    "s"} entries), on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(t, device) for k, t in tree.items()}
+    return tree.to(device)
+
+
 class FaultTolerantTrainer:
     """Runs on the card unless ``device`` says otherwise; ``dtype`` is the
-    compute dtype (masters and optimizer state stay f32)."""
+    compute dtype (masters stay f32, and the optimizer state f32 or, under
+    ``REPRO_OPT8BIT=1``, int8 with f32 block scales)."""
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
                  injector: Optional[FaultInjector] = None, *,
@@ -134,6 +143,10 @@ class FaultTolerantTrainer:
             # the loop drops the params and state it passes: updated in
             # place, they are held once (the same bits)
             donate=True)
+        # the optimizer state the step takes: f32 moments, or int8 codes and
+        # f32 block scales under REPRO_OPT8BIT=1 (the reference's trainer
+        # makes f32 moments for either step, so its 8-bit step fails)
+        self.init_opt = adamw.init_8bit if self.step_fn.opt8bit else adamw.init
         self.pipeline = SyntheticLMPipeline(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed))
@@ -149,7 +162,7 @@ class FaultTolerantTrainer:
     # ------------------------------------------------------------------
     def _init_state(self):
         params = pmod.materialize(self.defs, seed=self.tcfg.seed, device=self.device)
-        return params, adamw.init(params)
+        return params, self.init_opt(params)
 
     def _restore_or_init(self):
         # an async write still in flight is a checkpoint the accounting has
@@ -164,12 +177,9 @@ class FaultTolerantTrainer:
         # the structure to restore into: shapes only, nothing materialized
         p0 = {path: torch.empty(d.shape, dtype=d.dtype, device="meta")
               for path, d in pmod.flatten(self.defs)}
-        step, (params, opt_state), extra = self.manager.restore((p0, adamw.init(p0)))
-        params = {k: t.to(self.device) for k, t in params.items()}
-        opt_state = adamw.AdamWState(
-            opt_state.step.to(self.device),
-            {k: t.to(self.device) for k, t in opt_state.m.items()},
-            {k: t.to(self.device) for k, t in opt_state.v.items()})
+        step, (params, opt_state), extra = self.manager.restore((p0, self.init_opt(p0)))
+        params = _to(params, self.device)
+        opt_state = adamw.AdamWState(*(_to(x, self.device) for x in opt_state))
         start_step = int(extra.get("data_step", step))
         self.pipeline.restore(start_step)
         return params, opt_state, start_step
