@@ -121,8 +121,13 @@ def load() -> ctypes.CDLL:
     lib.rglru_bwd.restype = i32
     lib.rglru_bwd_tiled.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.rglru_bwd_tiled.restype = i32
-    lib.stat_grid.argtypes = [ptr] * 9 + [i32] * 2 + [ctypes.c_float] + [i32] * 3 + [ptr] * 10
+    lib.stat_grid.argtypes = ([ptr] * 9 + [i32] * 2 + [ctypes.c_float] + [i32] * 3 + [ptr] * 10
+                              + [ctypes.c_size_t, ptr])
     lib.stat_grid.restype = i32
+    lib.stat_grid_scratch_bytes.argtypes = [i32, i32]
+    lib.stat_grid_scratch_bytes.restype = ctypes.c_size_t
+    lib.stat_exponential.argtypes = [ptr, ptr, i32, ptr]
+    lib.stat_exponential.restype = i32
     lib.stat_philox.argtypes = [ptr] * 3 + [i32, ptr]
     lib.stat_philox.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

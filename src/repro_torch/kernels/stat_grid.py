@@ -14,6 +14,13 @@ on its own, as the kernel does, so per-run outcomes agree to the bit; the
 divisors are tensors on the input's device, since PyTorch turns a CUDA
 tensor's division by a Python number into a product with its reciprocal.
 
+Draws. Each Philox4x32-10 call gives four words, and each word is one
+draw: the time-to-failure draw of attempt ``a`` of run ``r`` is word ``a %
+4`` at counter (r, a // 4, TTF, 0), the queue draw after a failed attempt
+``a`` word ``a % 4`` at (r, a // 4, QUEUE, 0), and the run's initial queue
+draw word ``r % 4`` at (r // 4, 0, QUEUE0, 0), all under the key (seed,
+cell_index). A draw depends only on its indices.
+
 On CPU tensors ``stat_grid`` returns its plain version; on CUDA tensors it
 launches the kernel or raises.
 """
@@ -40,6 +47,7 @@ MC_OUTPUTS = ("mc_ettr_mean", "mc_ettr_std", "mc_n_failures")
 # kernel launches since the last reset; the CPU path does not count
 launches = 0          # stat_grid
 philox_launches = 0   # the known-answer entry
+exponential_launches = 0  # the exponential's check entry
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,14 +75,26 @@ def philox4x32_10(ctr, key) -> tuple[torch.Tensor, ...]:
     return c0, c1, c2, c3
 
 
-def exp_draw(k0: torch.Tensor, k1: torch.Tensor, run: torch.Tensor, attempt: int,
-             purpose: int) -> torch.Tensor:
-    """Standard exponential draws (f32): -log(u) in double with u = ((x >> 8)
-    + 1) 2^-24 in (0, 1], x the first Philox word at counter (run, attempt,
-    purpose, 0) under key (k0, k1)."""
-    x = philox4x32_10((run, attempt, purpose, 0), (k0, k1))[0]
+def exponential(x: torch.Tensor) -> torch.Tensor:
+    """Standard exponential draws (f32) of Philox words ``x``: -log(u) in
+    double with u = ((x >> 8) + 1) 2^-24 in (0, 1], rounded to f32."""
     u = ((x >> 8) + 1).to(torch.float64) * 2.0 ** -24
     return (-torch.log(u)).to(torch.float32)
+
+
+def exp_draw(k0: torch.Tensor, k1: torch.Tensor, run: torch.Tensor, attempt: int,
+             purpose: int) -> torch.Tensor:
+    """The attempt's draw of ``purpose`` (TTF or QUEUE) for each run: word
+    ``attempt % 4`` at counter (run, attempt // 4, purpose, 0) under key
+    (k0, k1)."""
+    return exponential(philox4x32_10((run, attempt // 4, purpose, 0), (k0, k1))[attempt % 4])
+
+
+def first_queue_draw(k0: torch.Tensor, k1: torch.Tensor, run: torch.Tensor) -> torch.Tensor:
+    """Each run's initial queue draw: word ``run % 4`` at counter (run // 4,
+    0, QUEUE0, 0) under key (k0, k1)."""
+    words = torch.stack(philox4x32_10((run // 4, 0, QUEUE0, 0), (k0, k1)))
+    return exponential(torch.gather(words, 0, (run % 4)[None]).squeeze(0))
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -123,7 +143,7 @@ def monte_carlo_ref(lam_s, dt_s, w_cp_s, u0_s, q_s, seeds, cell_index, runtime_s
     queue = torch.zeros_like(productive)
     fails = torch.zeros(C * n_runs, dtype=torch.int32, device=dev)
     if has_queue:
-        queue = exp_draw(k0, k1, run, 0, QUEUE0) * q_s[cell]
+        queue = first_queue_draw(k0, k1, run) * q_s[cell]
     active, attempt = idx, 0
     while active.numel():
         c = cell[active]
@@ -246,13 +266,16 @@ def stat_grid(cols: dict, cluster_rate: torch.Tensor, *, runtime_s: float,
             out["run_fails"] = torch.empty((C, n_runs), dtype=torch.int32, device=dev)
     ptr = lambda k: out[k].data_ptr() if k in out else None  # noqa: E731
     lib = _build.load()
+    # the Monte-Carlo's scratch: work estimates, the cells' order, chunk sums
+    nbytes = lib.stat_grid_scratch_bytes(C, n_runs) if include_mc else 0
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.stat_grid(
             *(t.data_ptr() for t in f32), *(t.data_ptr() for t in keys), rate.data_ptr(),
             C, M, ctypes.c_float(runtime_s), n_runs if include_mc else 0, int(include_mc),
             int(has_queue), *(ptr(k) for k in OUTPUTS), *(ptr(k) for k in MC_OUTPUTS),
-            ptr("run_ettr"), ptr("run_fails"), stream)
+            ptr("run_ettr"), ptr("run_fails"), scratch.data_ptr(), nbytes, stream)
     _build.check(lib, err, "stat_grid launch")
     launches += 1
     return out
@@ -280,3 +303,24 @@ def philox(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, "stat_philox launch")
     philox_launches += 1
     return (out.to(torch.int64) & MASK32).view(-1, 4)
+
+
+def exponential_draws(x: torch.Tensor) -> torch.Tensor:
+    """The exponential draw (f32) of each Philox word of ``x`` (int64, values
+    in [0, 2^32)). On the card it runs ``csrc/stat_grid.cu``'s own (for the
+    check that it equals ``exponential`` at every u); on the CPU
+    ``exponential``."""
+    global exponential_launches
+    if x.device.type == "cpu":
+        return exponential(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x32 = _u32(x.reshape(-1))
+    out = torch.empty(x32.shape, dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.stat_exponential(x32.data_ptr(), out.data_ptr(), x32.numel(), stream)
+    _build.check(lib, err, "stat_exponential launch")
+    exponential_launches += 1
+    return out.view(x.shape)

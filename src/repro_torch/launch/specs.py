@@ -93,10 +93,6 @@ def _quantized(shape: tuple) -> bool:
     return _opt8bit() and len(shape) >= 1 and math.prod(shape) >= adamw.QUANT_MIN_SIZE
 
 
-def _scale_shape(shape: tuple) -> tuple:
-    return shape[:-1] + (shape[-1] // adamw._opt_block(shape[-1]),)
-
-
 def _params(defs: Any, device) -> dict:
     return {path: _empty(d.shape, d.dtype, device) for path, d in pmod.flatten(defs)}
 
@@ -109,7 +105,7 @@ def _moments(defs: Any, device) -> dict:
     for path, d in pmod.flatten(defs):
         if _quantized(d.shape):
             out[path] = {"q": _empty(d.shape, torch.int8, device),
-                         "s": _empty(_scale_shape(d.shape), torch.float32, device)}
+                         "s": _empty(adamw._scale_shape(d.shape), torch.float32, device)}
         else:
             out[path] = _empty(d.shape, torch.float32, device)
     return out
@@ -152,7 +148,7 @@ def _moment_placements(defs: Any, mesh: Any, rules: ShardingRules,
     for path, d in pmod.flatten(defs):
         if _quantized(d.shape):
             out[path] = {"q": out[path],
-                         "s": placements(spec_for(_scale_shape(d.shape), d.axes, mesh, rules),
+                         "s": placements(spec_for(adamw._scale_shape(d.shape), d.axes, mesh, rules),
                                          mesh)}
     return out
 

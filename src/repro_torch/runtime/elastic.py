@@ -12,7 +12,8 @@ at the same data step.
 
 ``plan_shrink`` chooses the largest valid (data, model) mesh for the
 survivors; ``make_elastic_mesh`` builds it over the first data * model
-ranks; ``reshard_for`` places the restored tensors on it.  The shrunk run
+ranks; ``reshard_for`` places the restored tensors on it, and
+``reshard_state_for`` the restored AdamW state (f32 or 8-bit).  The shrunk run
 is a new launch of the survivors, not a sub-mesh of the old world: a
 DeviceMesh builds its groups with ``new_group``, which every rank of the
 default group has to call.
@@ -77,9 +78,35 @@ def reshard_for(tree: dict, mesh: DeviceMesh, rules: ShardingRules, defs: Any) -
             for path, t in tree.items()}
 
 
+def reshard_state_for(state, mesh: DeviceMesh, rules: ShardingRules, defs: Any):
+    """A restored AdamW state (full tensors, every rank holding the same
+    values) placed on ``mesh`` as ``adamw.init`` / ``adamw.init_8bit`` place
+    it: an f32 moment as its parameter, an 8-bit moment's int8 codes as the
+    parameter and its f32 block scales by ``adamw.scale_placements``; the
+    step on the mesh's device."""
+    from repro_torch.models.params import shardings as mk_shardings
+    from repro_torch.optim import adamw
+
+    sh = mk_shardings(defs, mesh, rules)
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+
+    def place(path, e):
+        if not isinstance(e, dict):
+            return distribute_tensor(e.to(dev), mesh, sh[path], src_data_rank=None)
+        s_pl = adamw.scale_placements(e["q"].shape, sh[path], mesh)
+        return {"q": distribute_tensor(e["q"].to(dev), mesh, sh[path], src_data_rank=None),
+                "s": distribute_tensor(e["s"].to(dev), mesh, s_pl, src_data_rank=None)}
+
+    return adamw.AdamWState(state.step.to(dev), {k: place(k, e) for k, e in state.m.items()},
+                            {k: place(k, e) for k, e in state.v.items()})
+
+
 def host_tree(tree: dict) -> dict:
     """Full tensors on the host of a tree of DTensors (every rank takes part
     in the gathers), as a topology-agnostic checkpoint holds them; plain
-    tensors are copied to the host as they are."""
-    return {path: (t.full_tensor() if isinstance(t, DTensor) else t).detach().cpu()
+    tensors are copied to the host as they are, and nested dicts (an 8-bit
+    moment's {"q", "s"}) keep their keys."""
+    return {path: host_tree(t) if isinstance(t, dict) else
+            (t.full_tensor() if isinstance(t, DTensor) else t).detach().cpu()
             for path, t in tree.items()}

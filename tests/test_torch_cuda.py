@@ -1247,6 +1247,18 @@ def test_stat_exponential_draws_agree_between_cpu_and_card(cuda):
     assert torch.equal((-torch.log(u)).float(), (-torch.log(u.to(cuda))).float().cpu())
 
 
+def test_stat_kernel_exponential_equals_plain_at_every_u(cuda):
+    """The kernels' own exponential (CUDA's log without its special cases,
+    csrc/stat_grid.cu) equals the plain version's at each of the 2^24 u."""
+    from repro_torch.kernels import stat_grid as sg
+
+    words = torch.arange(2 ** 24, dtype=torch.int64) << 8
+    before = sg.exponential_launches
+    got = sg.exponential_draws(words.to(cuda)).cpu()
+    assert sg.exponential_launches == before + 1
+    assert torch.equal(got, sg.exponential(words))
+
+
 def test_batch_bands_on_card_is_one_launch(cuda):
     """batch_bands(backend="torch") on the card: one launch a grid, and the
     numbers of the plain version run with device="cpu"."""

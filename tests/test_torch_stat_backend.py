@@ -15,6 +15,7 @@ reference's, bit for bit.
 """
 import dataclasses
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -298,8 +299,10 @@ def _walk(key, run, lam_s, dt, w, u0, q_s, R_target, has_queue):
     numpy f32 scalars, one rounding an operation, Philox from Python ints."""
     f = np.float32
 
-    def draw(attempt, purpose):
-        x = int(sg.philox4x32_10((run, attempt, purpose, 0), key)[0])
+    def draw(ctr, purpose, word):
+        """Word ``word`` of the Philox at counter (ctr, purpose): four draws a
+        call, as csrc/stat_grid.cu takes them."""
+        x = int(sg.philox4x32_10((*ctr, purpose, 0), key)[word])
         return f(-math.log(((x >> 8) + 1) * 2.0 ** -24))
 
     free_cp = dt <= 0
@@ -307,13 +310,14 @@ def _walk(key, run, lam_s, dt, w, u0, q_s, R_target, has_queue):
     prod = unprod = queue = f(0.0)
     fails = 0
     if has_queue:
-        queue = draw(0, sg.QUEUE0) * q_s
+        queue = draw((run // 4, 0), sg.QUEUE0, run % 4) * q_s
     attempt = 0
     while True:
         R_rem = R_target - prod
         m = f(0.0) if free_cp else max(f(np.ceil(R_rem / dt_safe)) - f(1.0), f(0.0))
         t_done = (u0 + R_rem) + m * w
-        ttf = draw(attempt, sg.TTF) / max(lam_s, f(1e-30)) if lam_s > 0 else f(np.inf)
+        ttf = (draw((run, attempt // 4), sg.TTF, attempt % 4) / max(lam_s, f(1e-30))
+               if lam_s > 0 else f(np.inf))
         if ttf > t_done:
             prod, unprod = R_target, unprod + (u0 + m * w)
             break
@@ -323,7 +327,7 @@ def _walk(key, run, lam_s, dt, w, u0, q_s, R_target, has_queue):
             prog = min(max(f(np.floor((ttf - u0) / (dt_safe + w))), f(0.0)), m) * dt_safe
         prod, unprod = prod + prog, unprod + (max(ttf, u0) - prog)
         if has_queue:
-            queue = queue + draw(attempt, sg.QUEUE) * q_s
+            queue = queue + draw((run, attempt // 4), sg.QUEUE, attempt % 4) * q_s
         fails += 1
         attempt += 1
     return prod / ((prod + unprod) + queue), fails
@@ -367,6 +371,59 @@ def test_plain_draws_do_not_depend_on_batching():
         assert torch.equal(one["run_ettr"][0], whole["run_ettr"][c, :16])
         assert torch.equal(one["run_fails"][0], whole["run_fails"][c, :16])
         assert torch.equal(one["ettr"][0], whole["ettr"][c])
+
+
+def test_draws_take_all_four_philox_words():
+    """Attempt a's draw is word a % 4 of the Philox at counter (run, a // 4,
+    purpose); a run's initial queue draw word run % 4 at (run // 4, 0,
+    QUEUE0): the plain version's draw functions, against Philox4x32-10
+    called word by word."""
+    k0, k1 = torch.tensor([7]), torch.tensor([11])
+    run = torch.arange(9)
+    for attempt in range(9):
+        for purpose in (sg.TTF, sg.QUEUE):
+            got = sg.exp_draw(k0, k1, run, attempt, purpose)
+            words = sg.philox4x32_10((run, attempt // 4, purpose, 0), (k0, k1))
+            assert torch.equal(got, sg.exponential(words[attempt % 4]))
+    words = torch.stack(sg.philox4x32_10((run // 4, 0, sg.QUEUE0, 0), (k0, k1)))
+    want = sg.exponential(words[run % 4, torch.arange(9)])
+    assert torch.equal(sg.first_queue_draw(k0, k1, run), want)
+    assert torch.equal(sg.exponential_draws(torch.tensor([0, 255, 2 ** 32 - 1])),
+                       sg.exponential(torch.tensor([0, 255, 2 ** 32 - 1])))
+
+
+def test_stat_work_counts_the_draw_scheme():
+    """chip_smoke.stat_work's counts for the Monte-Carlo's bound, against
+    the draws the scheme makes run by run: a Philox a group of four
+    time-to-failure draws, one a group of four failures' queue draws and
+    one a group of four runs' initial queue draws where q_s is not 0."""
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    fails = torch.tensor([[0, 3, 4, 7, 8], [1, 0, 2, 5, 11]], dtype=torch.int32)
+    q_s = torch.tensor([0.0, 900.0])
+    work = cs.stat_work(fails, q_s, True)
+    attempts = philox = draws = 0
+    for c in range(2):
+        for r in range(5):
+            f = int(fails[c, r])
+            attempts += f + 1
+            philox += -(-(f + 1) // 4)
+            draws += f + 1
+            if q_s[c]:
+                philox += -(-f // 4)
+                draws += f + 1  # the failures' queue draws and the initial one
+        philox += -(-5 // 4) if q_s[c] else 0
+    assert (work["attempts"], work["philox"], work["draws"]) == (attempts, philox, draws)
+    none = cs.stat_work(fails, q_s, False)
+    assert none["draws"] == none["attempts"] == attempts
+    ops = work["ops"]
+    assert ops["int32"] == philox * cs.STAT_PHILOX_INT + draws * cs.STAT_DRAW_INT
+    assert ops["issue"] == ops["int32"] + ops["fp64"] + ops["fp32"] + ops["convert"]
+    ms, by = cs.stat_bound_ms(2, 2, work)
+    terms = cs.stat_bound_terms(2, 2, work)
+    assert ms == max(terms.values()) and by == "operations"
 
 
 def test_plain_stats_are_the_runs_moments():
